@@ -1,0 +1,32 @@
+"""PDAC WSI segmentation in PyTorch for NVIDIA Hopper (H100).
+
+The port of ``pdac_pathological_image_segmentation_tpu`` (JAX/flax/Pallas),
+which stays beside it as the reference.  This package imports ``torch``,
+numpy, PIL and yaml, never ``jax`` nor anything of the JAX package.  Entry
+points take an explicit ``device``, default ``"cuda"``, and raise when no
+card is present unless the caller asks for ``"cpu"``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from pdac_pathological_image_segmentation_tpu_torch.config import (
+    Config,
+    load_config,
+)
+
+__all__ = ["Config", "load_config", "resolve_device"]
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """``device`` as a ``torch.device``; raises if a CUDA device is asked
+    for and none is present (the port never drops to the CPU by itself)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r} requested but no CUDA device is present; "
+            "pass device='cpu' to run on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device!r} (cuda or cpu)")
+    return dev

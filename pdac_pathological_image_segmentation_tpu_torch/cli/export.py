@@ -1,0 +1,76 @@
+"""Export CLI — write a port serving artifact from a reference checkpoint:
+
+    python -m pdac_pathological_image_segmentation_tpu_torch.cli.export \\
+        --config cfg.yaml --pth_path best.pth --out model.pdacpt
+
+The flags are the JAX package's ``cli/export.py``'s.  ``--pth_path`` is a
+reference-format ``.pth`` (``{"model": state_dict}`` or a bare
+``state_dict``, smp names, ``module.`` prefixes allowed); Orbax
+directories are the JAX package's format and are not read here.  The
+artifact holds the weights, not a compiled program: every batch size and
+the device are chosen at load time.  ``--batch``, ``--platforms`` and
+``--calib_path`` keep their names so that old command lines parse, and
+an error says why when one of them is set.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+from pdac_pathological_image_segmentation_tpu_torch.config import load_config
+
+
+def main(argv=None) -> dict:
+    parser = argparse.ArgumentParser(description="pathology_project")
+    parser.add_argument("--config", type=str, required=True)
+    parser.add_argument("--pth_path", required=True,
+                        help="reference .pth file (smp state_dict names)")
+    parser.add_argument("--out", required=True,
+                        help="output artifact path (suggest .pdacpt)")
+    parser.add_argument("--tile", type=int, default=None,
+                        help="tile size (default: cfg.img_size)")
+    parser.add_argument("--batch", type=int, default=None,
+                        help="not supported: the artifact serves any batch "
+                        "size")
+    parser.add_argument("--platforms", type=str, default=None,
+                        help="not supported: the device is chosen at load "
+                        "time (serve --device)")
+    parser.add_argument("--int8", action="store_true",
+                        help="int8 serving (not ported yet; raises)")
+    parser.add_argument("--calib_path", type=str, default=None,
+                        help="int8 calibration (not ported yet; raises)")
+    args = parser.parse_args(argv)
+    if args.batch is not None:
+        parser.error("--batch is not supported: the artifact holds weights "
+                     "and serves any batch size")
+    if args.platforms is not None:
+        parser.error("--platforms is not supported: pass --device to "
+                     "cli.serve (or device= to load_serving_artifact)")
+    if args.calib_path is not None:
+        parser.error("--calib_path is not supported: int8 export is not "
+                     "ported yet (ROADMAP.md)")
+
+    from pdac_pathological_image_segmentation_tpu_torch.infer.export import (
+        export_serving_artifact,
+    )
+    from pdac_pathological_image_segmentation_tpu_torch.utils.torch_weights import (
+        load_reference_state_dict,
+    )
+
+    if os.path.isdir(args.pth_path):
+        raise ValueError(
+            f"{args.pth_path} is a directory (an Orbax checkpoint of the JAX "
+            "package); pass a reference .pth file")
+    cfg = load_config(args.config)
+    tile = args.tile or cfg.img_size
+    size = export_serving_artifact(
+        cfg, load_reference_state_dict(args.pth_path), args.out, tile=tile,
+        int8=args.int8)
+    print(f"serving artifact written to {args.out} ({size / 1e6:.1f} MB, "
+          f"{cfg.model}/{cfg.backbone}, tile {tile}, {cfg.compute_dtype})")
+    return {"path": args.out, "bytes": size}
+
+
+if __name__ == "__main__":
+    main()

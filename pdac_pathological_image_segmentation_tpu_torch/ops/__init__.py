@@ -1,0 +1,2 @@
+"""Tensor ops of the port: the hand-written GroupNorm+ReLU kernel and the
+resize helpers."""

@@ -1,0 +1,115 @@
+"""Import boundaries and device rules of the PyTorch port.
+
+The port imports torch, numpy, PIL and yaml, never ``jax`` nor any module
+of the JAX package.  The port's own name starts with the JAX package's, so
+every check compares module names exactly: the package itself or a name
+starting with it plus a dot.  The import check runs in a subprocess,
+because this test process has imported jax already (``conftest.py``).
+"""
+
+import ast
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = "pdac_pathological_image_segmentation_tpu_torch"
+JAX_PKG = "pdac_pathological_image_segmentation_tpu"
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == p or name.startswith(p + ".") for p in ("jax", JAX_PKG))
+
+
+def test_name_check_is_exact():
+    assert _forbidden("jax") and _forbidden("jax.numpy")
+    assert _forbidden(JAX_PKG) and _forbidden(JAX_PKG + ".config")
+    assert not _forbidden(PORT) and not _forbidden(PORT + ".config")
+    assert not _forbidden("jaxtyping")
+
+
+_PROBE = """
+import importlib, json, pkgutil, sys
+import {port} as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+print(json.dumps({{"imported": names, "modules": sorted(sys.modules)}}))
+"""
+
+
+def test_port_modules_import_without_jax():
+    proc = subprocess.run(
+        [sys.executable, "-c", _PROBE.format(port=PORT)], cwd=ROOT,
+        capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    expected = {f"{PORT}.{m}" for m in (
+        "config", "ops.group_norm", "ops._build", "ops.resize",
+        "models.resnet", "models.encoders", "models.fpn", "models.registry",
+        "utils.torch_weights", "train.steps", "infer.export", "infer.server",
+        "cli.export", "cli.serve")}
+    assert expected <= set(out["imported"])
+    assert [m for m in out["modules"] if _forbidden(m)] == []
+
+
+def _imported_names(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("where", [PORT, "chip_smoke.py"])
+def test_no_source_names_jax(where):
+    files = ([ROOT / where] if where.endswith(".py")
+             else sorted((ROOT / where).rglob("*.py")))
+    assert files
+    bad = {f.name: n for f in files for n in _imported_names(f)
+           if _forbidden(n)}
+    assert bad == {}
+
+
+def test_entry_points_default_to_cuda_and_raise_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the card-less "
+                    "behaviour")
+    from pdac_pathological_image_segmentation_tpu_torch import (
+        Config,
+        resolve_device,
+    )
+    from pdac_pathological_image_segmentation_tpu_torch.infer.export import (
+        export_serving_artifact,
+        load_serving_artifact,
+    )
+    from pdac_pathological_image_segmentation_tpu_torch.models import (
+        build_model,
+    )
+
+    cfg = Config(model="fpn", img_size=64, compute_dtype="float32")
+    path = str(tmp_path / "m.pdacpt")
+    export_serving_artifact(cfg, build_model(cfg).state_dict(), path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_serving_artifact(path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    assert load_serving_artifact(path, device="cpu").device.type == "cpu"
+    with pytest.raises(ValueError, match="unsupported device"):
+        resolve_device("meta")
+
+
+def test_cuda_tensor_without_kernel_raises_not_falls_back():
+    """A non-CPU tensor never takes the plain version: a meta tensor (the
+    only non-CPU device this host has) is refused."""
+    from pdac_pathological_image_segmentation_tpu_torch.ops.group_norm import (
+        group_norm_relu,
+    )
+
+    x = torch.empty(1, 32, 4, 4, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        group_norm_relu(x, torch.ones(32), torch.zeros(32))

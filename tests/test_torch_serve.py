@@ -1,0 +1,348 @@
+"""Serving of the PyTorch port (``infer/export.py``, ``infer/server.py``,
+``cli/export.py``) on the CPU.
+
+Pinned here, as ``tests/test_server.py`` pins the JAX daemon: the raw
+float32 response is bit-equal to the direct artifact call, concurrent
+requests coalesce into shared bucket batches, resize-on-ingest, and the
+error surface (415/400/404, and 406 for the GeoJSON response the port
+does not have yet).  Across packages: the port server and the JAX server
+answer the same tile, from the same weights, within ``atol=5e-4``, and
+each package's loader refuses the other's artifact.
+"""
+
+import io
+import json
+import threading
+import urllib.error
+import urllib.request
+from collections import namedtuple
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import yaml
+
+from pdac_pathological_image_segmentation_tpu.config import Config as JaxConfig
+from pdac_pathological_image_segmentation_tpu.infer.export import (
+    export_serving_artifact as jax_export_serving_artifact,
+    load_serving_artifact as jax_load_serving_artifact,
+)
+from pdac_pathological_image_segmentation_tpu.infer.server import (
+    SegmentationServer as JaxSegmentationServer,
+)
+from pdac_pathological_image_segmentation_tpu.models import (
+    build_model as jax_build_model,
+)
+from pdac_pathological_image_segmentation_tpu.utils.torch_weights import (
+    convert_smp_fpn_state_dict,
+)
+from pdac_pathological_image_segmentation_tpu_torch import Config
+from pdac_pathological_image_segmentation_tpu_torch.cli import (
+    export as cli_export,
+)
+from pdac_pathological_image_segmentation_tpu_torch.infer.export import (
+    MAGIC,
+    export_serving_artifact,
+    load_serving_artifact,
+)
+from pdac_pathological_image_segmentation_tpu_torch.infer.server import (
+    MicroBatcher,
+    SegmentationServer,
+    _decode_body,
+)
+from pdac_pathological_image_segmentation_tpu_torch.models import build_model
+from pdac_pathological_image_segmentation_tpu_torch.utils.torch_weights import (
+    seeded_state_dict,
+)
+
+TILE = 64
+RAW = {"Content-Type": "application/octet-stream",
+       "X-Image-Shape": f"{TILE},{TILE},3"}
+
+
+def _cfg():
+    return Config(model="fpn", backbone="resnet18", img_size=TILE,
+                  compute_dtype="float32")
+
+
+@pytest.fixture(scope="module")
+def weights():
+    return seeded_state_dict(build_model(_cfg()), seed=9)
+
+
+@pytest.fixture(scope="module")
+def artifact_path(weights, tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("srv") / "model.pdacpt")
+    export_serving_artifact(_cfg(), weights, path)
+    return path
+
+
+@pytest.fixture(scope="module")
+def artifact(artifact_path):
+    return load_serving_artifact(artifact_path, device="cpu")
+
+
+def _serve(srv):
+    srv.start(warmup=True)
+    t = threading.Thread(target=srv.serve_forever, daemon=True)
+    t.start()
+    return srv
+
+
+@pytest.fixture(scope="module")
+def server(artifact):
+    srv = _serve(SegmentationServer(("127.0.0.1", 0), artifact,
+                                    buckets=(1, 4), max_wait_ms=20.0))
+    yield srv
+    srv.shutdown()
+
+
+def _url(server, path):
+    host, port = server.server_address[:2]
+    return f"http://{host}:{port}{path}"
+
+
+def _post(server, body, headers, path="/v1/segment"):
+    req = urllib.request.Request(_url(server, path), data=body,
+                                 headers=headers, method="POST")
+    return urllib.request.urlopen(req, timeout=60)
+
+
+def _raw_probs(resp):
+    shape = tuple(int(v) for v in resp.headers["X-Prob-Shape"].split(","))
+    return np.frombuffer(resp.read(), np.float32).reshape(shape)
+
+
+def test_healthz_and_metadata(server):
+    with urllib.request.urlopen(_url(server, "/healthz"), timeout=30) as r:
+        health = json.loads(r.read())
+    assert health == {"status": "ok", "platform": "cpu", "device": "cpu",
+                      "model": "fpn"}
+    with urllib.request.urlopen(_url(server, "/v1/metadata"),
+                                timeout=30) as r:
+        meta = json.loads(r.read())
+    assert meta["artifact"]["tile"] == TILE
+    assert meta["artifact"]["compute_dtype"] == "float32"
+    assert meta["buckets"] == [1, 4]
+
+
+def test_raw_roundtrip_bit_equal_to_artifact(server, artifact):
+    img = np.random.default_rng(0).integers(0, 256, (TILE, TILE, 3),
+                                            dtype=np.uint8)
+    resp = _post(server, img.tobytes(),
+                 {**RAW, "Accept": "application/octet-stream"})
+    assert resp.headers["X-Prob-Repr"] == "f32"
+    probs = _raw_probs(resp)
+    direct = artifact(img[None])[0]
+    assert direct.dtype == np.float32
+    np.testing.assert_array_equal(probs, direct)
+    frac = float(resp.headers["X-Tumor-Fraction"])
+    assert frac == pytest.approx(float((direct >= 0.5).mean()), abs=1e-5)
+
+
+def test_png_roundtrip(server, artifact):
+    from PIL import Image
+
+    img = np.random.default_rng(1).integers(0, 256, (TILE, TILE, 3),
+                                            dtype=np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, format="PNG")
+    resp = _post(server, buf.getvalue(), {"Content-Type": "image/png"})
+    assert resp.headers["Content-Type"] == "image/png"
+    mask = np.asarray(Image.open(io.BytesIO(resp.read())))
+    direct = artifact(img[None])[0]
+    np.testing.assert_array_equal(
+        mask, np.round(direct * 255.0).clip(0, 255).astype(np.uint8))
+
+
+def test_resize_on_ingest(server, artifact):
+    from PIL import Image
+
+    big = np.random.default_rng(2).integers(0, 256, (2 * TILE, 2 * TILE, 3),
+                                            dtype=np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(big).save(buf, format="PNG")
+    resp = _post(server, buf.getvalue(), {
+        "Content-Type": "image/png", "Accept": "application/octet-stream"})
+    probs = _raw_probs(resp)
+    assert probs.shape == (TILE, TILE)
+    small = np.asarray(
+        Image.fromarray(big).resize((TILE, TILE), Image.BILINEAR), np.uint8)
+    np.testing.assert_allclose(probs, artifact(small[None])[0], atol=1e-6,
+                               rtol=0)
+
+
+def test_u8_response_repr(server, artifact):
+    img = np.random.default_rng(3).integers(0, 256, (TILE, TILE, 3),
+                                            dtype=np.uint8)
+    resp = _post(server, img.tobytes(),
+                 {**RAW, "Accept": "application/octet-stream;repr=u8"})
+    assert resp.headers["X-Prob-Repr"] == "u8"
+    u8 = np.frombuffer(resp.read(), np.uint8).reshape(TILE, TILE)
+    direct = artifact(img[None])[0]
+    np.testing.assert_array_equal(
+        u8, np.round(direct * 255.0).clip(0, 255).astype(np.uint8))
+
+
+def test_concurrent_requests_coalesce(server, artifact):
+    """8 parallel clients over buckets (1, 4) finish in >=2 but <8 device
+    batches."""
+    before = server.batcher.stats()
+    imgs = np.random.default_rng(4).integers(0, 256, (8, TILE, TILE, 3),
+                                             dtype=np.uint8)
+    results = [None] * 8
+    errors = []
+
+    def hit(i):
+        try:
+            resp = _post(server, imgs[i].tobytes(),
+                         {**RAW, "Accept": "application/octet-stream"})
+            results[i] = _raw_probs(resp)
+        except Exception as exc:  # noqa: BLE001
+            errors.append(exc)
+
+    threads = [threading.Thread(target=hit, args=(i,)) for i in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors
+    direct = artifact(imgs)
+    for i in range(8):
+        np.testing.assert_allclose(results[i], direct[i], atol=1e-6, rtol=0)
+    n_batches = server.batcher.stats()["batches"] - before["batches"]
+    assert 2 <= n_batches < 8, f"expected coalescing, got {n_batches} batches"
+
+
+def test_error_surface(server):
+    cases = [
+        (b"bytes", {"Content-Type": "text/plain"}, "/v1/segment", 415),
+        (b"short", RAW, "/v1/segment", 400),
+        (b"x", {"Content-Type": "image/png"}, "/nope", 404),
+        (b"not a png", {"Content-Type": "image/png"}, "/v1/segment", 400),
+    ]
+    for body, headers, path, code in cases:
+        with pytest.raises(urllib.error.HTTPError) as e:
+            _post(server, body, headers, path=path)
+        assert e.value.code == code, (path, headers)
+
+
+def test_geojson_is_refused_until_ported(server):
+    img = np.zeros((TILE, TILE, 3), np.uint8)
+    with pytest.raises(urllib.error.HTTPError) as e:
+        _post(server, img.tobytes(), {**RAW, "Accept": "application/geo+json"})
+    assert e.value.code == 406
+    assert "ROADMAP" in json.loads(e.value.read())["error"]
+
+
+def test_stats_shape(server):
+    with urllib.request.urlopen(_url(server, "/v1/stats"), timeout=30) as r:
+        stats = json.loads(r.read())
+    assert stats["requests"] >= 1 and stats["batches"] >= 1
+    assert stats["warmups"] == 2
+    assert "latency_ms_p50" in stats
+
+
+def test_decode_body_validation():
+    with pytest.raises(ValueError, match="X-Image-Shape"):
+        _decode_body(b"", "application/octet-stream", "", TILE)
+    with pytest.raises(ValueError, match="3-channel"):
+        _decode_body(b"\0" * 64, "application/octet-stream", "4,4,4", TILE)
+    with pytest.raises(TypeError, match="unsupported"):
+        _decode_body(b"", "video/mp4", "", TILE)
+
+
+def test_batcher_rejects_bad_tile_and_needs_start(artifact):
+    b = MicroBatcher(artifact, buckets=(1,))
+    with pytest.raises(RuntimeError, match="not running"):
+        b.submit(np.zeros((TILE, TILE, 3), np.uint8))
+    b.start(warmup=False)
+    try:
+        with pytest.raises(ValueError, match="expected uint8"):
+            b.submit(np.zeros((TILE, TILE), np.uint8))
+    finally:
+        b.stop()
+    assert not b._thread.is_alive()
+
+
+def test_cli_export_matches_direct_export(weights, artifact, tmp_path):
+    cfg_path = tmp_path / "cfg.yaml"
+    cfg_path.write_text(yaml.safe_dump(
+        {"model": "fpn", "backbone": "resnet18", "img_size": TILE,
+         "compute_dtype": "float32"}))
+    pth = tmp_path / "best.pth"
+    torch.save({"model": {f"module.{k}": v for k, v in weights.items()}},
+               pth)
+    out = tmp_path / "cli.pdacpt"
+    res = cli_export.main(["--config", str(cfg_path), "--pth_path", str(pth),
+                           "--out", str(out)])
+    assert res["bytes"] == out.stat().st_size
+    again = load_serving_artifact(str(out), device="cpu")
+    assert again.meta == artifact.meta
+    img = np.random.default_rng(5).integers(0, 256, (2, TILE, TILE, 3),
+                                            dtype=np.uint8)
+    np.testing.assert_array_equal(again(img), artifact(img))
+
+
+@pytest.mark.parametrize("flag", [["--batch", "8"],
+                                  ["--platforms", "cuda"],
+                                  ["--calib_path", "patches"]])
+def test_cli_export_refuses_flags_it_cannot_honour(flag, tmp_path, capsys):
+    with pytest.raises(SystemExit) as exc:
+        cli_export.main(["--config", "cfg.yaml", "--pth_path", "best.pth",
+                         "--out", str(tmp_path / "a.pdacpt"), *flag])
+    assert exc.value.code == 2
+    assert f"{flag[0]} is not supported" in capsys.readouterr().err
+
+
+def test_int8_and_stain_raise(weights, tmp_path):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        export_serving_artifact(_cfg(), weights, str(tmp_path / "a"),
+                                int8=True)
+    cfg = _cfg()
+    cfg.stain = "macenko"
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        export_serving_artifact(cfg, weights, str(tmp_path / "b"))
+
+
+def test_loaders_refuse_each_others_artifacts(artifact_path, tmp_path):
+    with open(artifact_path, "rb") as f:
+        assert f.read(len(MAGIC)) == MAGIC
+    with pytest.raises(ValueError, match="bad magic"):
+        jax_load_serving_artifact(artifact_path)
+    jax_like = tmp_path / "jax.pdacsrv"
+    jax_like.write_bytes(b"PDACSRV1" + b"\0" * 16)
+    with pytest.raises(ValueError, match="bad magic"):
+        load_serving_artifact(str(jax_like), device="cpu")
+
+
+def test_port_server_matches_jax_server(weights, server, tmp_path):
+    """The same weights served by both daemons answer one tile within
+    ``atol=5e-4``."""
+    jcfg = JaxConfig(model="fpn", backbone="resnet18", img_size=TILE,
+                     compute_dtype="float32")
+    jmodel = jax_build_model(jcfg)
+    variables = jax.jit(jmodel.init, static_argnames=("train",))(
+        {"params": jax.random.PRNGKey(0)}, jnp.zeros((1, TILE, TILE, 3)),
+        train=False)
+    params, batch_stats = convert_smp_fpn_state_dict(
+        {k: v.numpy() for k, v in weights.items()},
+        variables["params"], variables["batch_stats"])
+    state = namedtuple("_State", "params batch_stats")(params, batch_stats)
+    path = str(tmp_path / "model.pdacsrv")
+    jax_export_serving_artifact(jcfg, state, path, platforms=("cpu",))
+    jsrv = _serve(JaxSegmentationServer(
+        ("127.0.0.1", 0), jax_load_serving_artifact(path), buckets=(1,),
+        aot=False))
+    try:
+        img = np.random.default_rng(6).integers(0, 256, (TILE, TILE, 3),
+                                                dtype=np.uint8)
+        headers = {**RAW, "Accept": "application/octet-stream"}
+        ours = _raw_probs(_post(server, img.tobytes(), headers))
+        ref = _raw_probs(_post(jsrv, img.tobytes(), headers))
+    finally:
+        jsrv.shutdown()
+    np.testing.assert_allclose(ours, ref, rtol=0, atol=5e-4)
