@@ -16,7 +16,7 @@ from pdac_pathological_image_segmentation_tpu_torch.config import (
     load_config,
 )
 
-__all__ = ["Config", "load_config", "resolve_device"]
+__all__ = ["Config", "host_to_device", "load_config", "resolve_device"]
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -30,3 +30,13 @@ def resolve_device(device="cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r} (cuda or cpu)")
     return dev
+
+
+def host_to_device(t: torch.Tensor, device) -> torch.Tensor:
+    """``t`` on ``device``: a CPU tensor bound for a card is pinned and
+    copied without blocking (a copy from pageable memory would first wait
+    for the card's queue to drain)."""
+    device = torch.device(device)
+    if device.type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)

@@ -7,11 +7,17 @@ ReLU, nearest 2× upsampling to stride 4) → sum → Dropout2d (a no-op in
 eval) → 1×1 head → corner-aligned bilinear upsample to ``output_size`` in
 float32.  The output is logits, NCHW.
 
-Every GroupNorm+ReLU goes through ``ops.group_norm.group_norm_relu``: the
-hand-written kernel on a CUDA device, the plain version on the CPU.  (The
-JAX package makes its Pallas kernel opt-in through ``fpn_pallas_gn``
-because of TPU layout copies around the custom call; the card has no such
-cost, so the port has no such switch.)
+Every GroupNorm+ReLU goes through ``ops.group_norm.group_norm_relu_trainable``:
+the hand-written forward kernel on a CUDA device, the plain version on the
+CPU, and, when a gradient is wanted, ``GroupNormReLUFunction``, whose
+backward is the hand-written backward kernel (plain on the CPU), so that
+autograd follows both.  (The JAX package makes its Pallas kernel opt-in
+through ``fpn_pallas_gn`` because of TPU layout copies around the custom
+call; the card has no such cost, so the port has no such switch.)
+
+In train mode BatchNorm takes batch statistics (torch's momentum 0.1 is
+flax's 0.9) and Dropout2d draws its per-(n, c) mask from the generator
+passed to :meth:`FPN.forward`, never from the global RNG.
 """
 
 from __future__ import annotations
@@ -20,13 +26,14 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from pdac_pathological_image_segmentation_tpu_torch import host_to_device
 from pdac_pathological_image_segmentation_tpu_torch.models.encoders import (
     build_encoder,
     encoder_feature_channels,
 )
 from pdac_pathological_image_segmentation_tpu_torch.models.resnet import Conv2d
 from pdac_pathological_image_segmentation_tpu_torch.ops.group_norm import (
-    group_norm_relu,
+    group_norm_relu_trainable,
 )
 from pdac_pathological_image_segmentation_tpu_torch.ops.resize import (
     resize_bilinear,
@@ -50,8 +57,35 @@ class GroupNormReLU(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return group_norm_relu(x, self.weight, self.bias,
-                               num_groups=self.num_groups, eps=GN_EPS)
+        return group_norm_relu_trainable(x, self.weight, self.bias,
+                                         num_groups=self.num_groups,
+                                         eps=GN_EPS)
+
+
+class Dropout2d(nn.Module):
+    """Whole-channel dropout (flax ``nn.Dropout(broadcast_dims=(1, 2))``,
+    torch ``nn.Dropout2d``): in train mode each (n, c) plane is kept with
+    probability ``1 - p`` and scaled by ``1 / (1 - p)``.  The mask is drawn
+    on ``generator``'s device from that generator alone."""
+
+    def __init__(self, p: float = 0.2) -> None:
+        super().__init__()
+        if not 0.0 <= p < 1.0:
+            raise ValueError(f"dropout p must be in [0, 1), got {p}")
+        self.p = p
+
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        if generator is None:
+            raise ValueError("Dropout2d in train mode needs an explicit "
+                             "torch.Generator")
+        n, c = x.shape[:2]
+        keep = torch.rand((n, c, 1, 1), generator=generator,
+                          device=generator.device) >= self.p
+        keep = host_to_device(keep, x.device)
+        return torch.where(keep, x / (1.0 - self.p), torch.zeros_like(x))
 
 
 class Conv3x3GNReLU(nn.Module):
@@ -100,35 +134,39 @@ class FPNDecoder(nn.Module):
         self.seg_blocks = nn.ModuleList(
             SegmentationBlock(pyramid_channels, segmentation_channels, n)
             for n in (3, 2, 1, 0))
-        self.dropout = nn.Dropout2d(dropout)
+        self.dropout = Dropout2d(dropout)
 
-    def forward(self, c2, c3, c4, c5) -> torch.Tensor:
+    def forward(self, c2, c3, c4, c5,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         p5 = self.p5(c5)
         p4 = self.p4(p5, c4)
         p3 = self.p3(p4, c3)
         p2 = self.p2(p3, c2)
         y = sum(b(p) for b, p in zip(self.seg_blocks, (p5, p4, p3, p2)))
-        return self.dropout(y)
+        return self.dropout(y, generator)
 
 
 class FPN(nn.Module):
     def __init__(self, num_classes: int = 1, output_size: int = 512,
                  backbone: str = "resnet18",
-                 compute_dtype: torch.dtype = torch.float32) -> None:
+                 compute_dtype: torch.dtype = torch.float32,
+                 dropout: float = 0.2) -> None:
         super().__init__()
         self.num_classes = num_classes
         self.output_size = output_size
         self.compute_dtype = compute_dtype
         self.encoder = build_encoder(backbone)
-        self.decoder = FPNDecoder(encoder_feature_channels(backbone))
+        self.decoder = FPNDecoder(encoder_feature_channels(backbone),
+                                  dropout=dropout)
         # smp's FPN passes kernel_size=1 to its SegmentationHead
         self.segmentation_head = nn.Sequential(Conv2d(128, num_classes, 1))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         """``x``: NCHW normalized images; returns float32 NCHW logits at
-        ``output_size``."""
+        ``output_size``.  ``generator`` feeds Dropout2d in train mode."""
         _, c2, c3, c4, c5 = self.encoder(x.to(self.compute_dtype))
-        y = self.segmentation_head(self.decoder(c2, c3, c4, c5))
+        y = self.segmentation_head(self.decoder(c2, c3, c4, c5, generator))
         # smp's head upsamples with nn.UpsamplingBilinear2d: corner-aligned
         return resize_bilinear(y.float(), self.output_size, self.output_size,
                                align_corners=True)

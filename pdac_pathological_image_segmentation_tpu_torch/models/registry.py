@@ -12,7 +12,7 @@ from pdac_pathological_image_segmentation_tpu_torch.models.fpn import FPN
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 _ROADMAP = {
-    "unet": "ROADMAP.md Queue 1, item 2 (unet/resnet18 train step and "
+    "unet": "ROADMAP.md Queue 1, item 3 (unet/resnet18 train step and "
             "ResUNet serving)",
     "deeplabv3+": "ROADMAP.md Queue 1, item 4 (the rest)",
     "pspnet": "ROADMAP.md Queue 1, item 4 (the rest)",

@@ -15,10 +15,11 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("group_norm_relu.cu",)
+SOURCES = ("group_norm_relu.cu", "fused_augment.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -64,8 +65,10 @@ def build(source: str) -> Path:
 
 
 def build_all() -> list:
-    """Compile every source; their paths."""
-    return [build(s) for s in SOURCES]
+    """Compile every source, one ``nvcc`` per source, all started
+    together; their paths, in ``SOURCES`` order."""
+    with ThreadPoolExecutor(max_workers=len(SOURCES)) as pool:
+        return list(pool.map(build, SOURCES))
 
 
 def load(source: str) -> ctypes.CDLL:

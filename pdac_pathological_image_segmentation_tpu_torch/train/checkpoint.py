@@ -1,0 +1,86 @@
+"""Checkpoints: ``latest.pth`` every epoch, ``best.pth`` on improvement,
+resume from ``latest.pth`` (the JAX package's ``train/checkpoint.py``).
+
+The files are in the reference's format (``train_worker.py:116-125``):
+``{"model": state_dict with the DDP "module." prefix, "optimizer":
+Adam's state_dict, "epoch", "previous_best"}``, so the reference's
+``test.py`` and the JAX package's ``load_reference_checkpoint_full`` read
+them.  Beside those keys the port keeps the plateau scheduler's and the
+early stop's state, which the reference does not save, so a resume
+continues them.  Every tensor is written from the CPU, synchronously, to a
+temporary file that replaces the old one.
+"""
+
+from __future__ import annotations
+
+import os
+import shutil
+from typing import Optional
+
+import torch
+import torch.nn as nn
+
+LATEST = "latest.pth"
+BEST = "best.pth"
+_PREFIX = "module."
+
+
+def _cpu(obj):
+    if torch.is_tensor(obj):
+        return obj.detach().cpu()
+    if isinstance(obj, dict):
+        return {k: _cpu(v) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [_cpu(v) for v in obj]
+    return obj
+
+
+def checkpoint_payload(model: nn.Module, optimizer: torch.optim.Optimizer,
+                       epoch: int, previous_best: float,
+                       scheduler_state: Optional[dict] = None,
+                       earlystop_state: Optional[dict] = None) -> dict:
+    """The reference-format dictionary of one epoch, on the CPU."""
+    payload = {
+        "model": {_PREFIX + k: v for k, v in _cpu(model.state_dict()).items()},
+        "optimizer": _cpu(optimizer.state_dict()),
+        "epoch": int(epoch),
+        "previous_best": float(previous_best),
+    }
+    if scheduler_state is not None:
+        payload["scheduler"] = dict(scheduler_state)
+    if earlystop_state is not None:
+        payload["earlystop"] = dict(earlystop_state)
+    return payload
+
+
+def save_checkpoint(pth_dir: str, model: nn.Module,
+                    optimizer: torch.optim.Optimizer, epoch: int,
+                    previous_best: float, scheduler_state: dict,
+                    earlystop_state: dict, is_best: bool) -> None:
+    """Write ``latest.pth`` and, when ``is_best``, ``best.pth``."""
+    os.makedirs(pth_dir, exist_ok=True)
+    payload = checkpoint_payload(model, optimizer, epoch, previous_best,
+                                 scheduler_state, earlystop_state)
+    latest = os.path.join(pth_dir, LATEST)
+    tmp = latest + ".tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, latest)
+    if is_best:
+        shutil.copyfile(latest, tmp)
+        os.replace(tmp, os.path.join(pth_dir, BEST))
+
+
+def restore_checkpoint(pth_dir: str, model: nn.Module,
+                       optimizer: torch.optim.Optimizer,
+                       name: str = LATEST) -> Optional[dict]:
+    """Load ``pth_dir/name`` into ``model`` and ``optimizer`` (onto their
+    devices) and return its other keys, or ``None`` when there is none."""
+    path = os.path.join(pth_dir, name)
+    if not os.path.isfile(path):
+        return None
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    model.load_state_dict(
+        {k.removeprefix(_PREFIX): v for k, v in ckpt["model"].items()},
+        strict=True)
+    optimizer.load_state_dict(ckpt["optimizer"])
+    return {k: v for k, v in ckpt.items() if k not in ("model", "optimizer")}

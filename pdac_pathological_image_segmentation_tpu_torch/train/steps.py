@@ -1,5 +1,12 @@
-"""Step builders (the JAX package's ``train/steps.py``).  The port has the
-inference step so far; the train step is ROADMAP.md Queue 1, item 2."""
+"""Step factories (the JAX package's ``train/steps.py``): the train step,
+the eval step and the tile→mask inference step.
+
+The train step is the reference's per-batch body (``train_worker.py:67-83``):
+augmentation (the fused kernel, ``ops/fused_augment.py``) → train-mode
+forward → Dice → backward (the GroupNorm backward kernel at every GN site)
+→ Adam.  It returns the loss and the score as tensors on the device and
+never waits for the card.
+"""
 
 from __future__ import annotations
 
@@ -12,11 +19,109 @@ from pdac_pathological_image_segmentation_tpu_torch.config import (
     IMAGENET_MEAN,
     IMAGENET_STD,
 )
+from pdac_pathological_image_segmentation_tpu_torch.ops.augment import (
+    check_supported,
+    draw_augment_scalars,
+    eval_transform,
+    make_augment_tables,
+)
+from pdac_pathological_image_segmentation_tpu_torch.ops.fused_augment import (
+    fused_train_transform,
+)
 from pdac_pathological_image_segmentation_tpu_torch.ops.resize import (
     resize_bilinear,
 )
+from pdac_pathological_image_segmentation_tpu_torch.train.objective import (
+    Objective,
+)
 
 STEM = "encoder.conv1.weight"
+_NOT_PORTED = {
+    "remat": "remat (activation recomputation) is not ported yet "
+             "(ROADMAP.md Queue 1, item 4)",
+    "grad_accum_steps": "grad_accum_steps > 1 is not ported yet "
+                        "(ROADMAP.md Queue 1, item 4)",
+    "fused_augment": "fused_augment: false would run the plain augmentation "
+                     "on the card, which the port does not do (the plain "
+                     "chain is the kernel's reference only; ROADMAP.md "
+                     "Queue 1, item 4)",
+}
+
+
+def step_generator(seed: int, epoch: int, step: int) -> torch.Generator:
+    """The CPU generator of one train step, seeded from ``(seed, epoch,
+    step)`` (the JAX package folds the epoch and the step into its key).
+    The augmentation draws and the dropout masks come from it, on the host,
+    so a step draws the same numbers on the card and on the CPU."""
+    state = np.random.SeedSequence([seed, epoch, step]).generate_state(2)
+    return torch.Generator().manual_seed(
+        int(state[0]) << 32 | int(state[1]))
+
+
+def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
+                    img_size: int, objective: Objective,
+                    augment: bool = True, fused_augment: bool = True,
+                    remat: bool = False, grad_accum_steps: int = 1,
+                    parity_mode: bool = False, stain: str = "none"):
+    """``step(images_u8, masks_u8, valid, generator) → (loss, score)``.
+
+    ``images_u8`` (N, S, S, 3) and ``masks_u8`` (N, S, S) uint8 and
+    ``valid`` (N,) bool lie on the model's device; ``valid`` False marks
+    the wrap-padded samples of a final partial batch, which pass through
+    BatchNorm's batch statistics but not the loss or the score.  The
+    augmentation is the fused kernel on bf16 (the JAX package's default
+    where the kernel applies); ``augment=False`` takes ``eval_transform``
+    in the model's compute dtype.  The score is taken on the pre-update
+    forward (``steps.py:92-94`` of the JAX package)."""
+    if remat:
+        raise NotImplementedError(_NOT_PORTED["remat"])
+    if grad_accum_steps != 1:
+        raise NotImplementedError(_NOT_PORTED["grad_accum_steps"])
+    if augment and not fused_augment:
+        raise NotImplementedError(_NOT_PORTED["fused_augment"])
+    check_supported(parity_mode, stain)
+    dtype = getattr(model, "compute_dtype", torch.float32)
+
+    def step(images, masks, valid, generator: torch.Generator):
+        model.train()
+        if augment:
+            if tuple(images.shape[1:3]) != (img_size, img_size):
+                raise ValueError(
+                    f"the fused augmentation takes tiles at img_size "
+                    f"{img_size}, got {tuple(images.shape[1:3])} (resize on "
+                    "ingest is not ported for training)")
+            facs, ints = draw_augment_scalars(images.shape[0], generator)
+            tables = make_augment_tables(facs, ints).to(images.device)
+            imgs, msks = fused_train_transform(images, masks, tables)
+        else:
+            imgs, msks = eval_transform(images, masks, img_size, dtype)
+        out = model(imgs, generator)
+        loss = objective.loss_fn(out, msks, valid)
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        optimizer.step()
+        with torch.no_grad():
+            score = objective.score_fn(out, msks, valid)
+        return loss.detach(), score
+
+    return step
+
+
+def make_eval_step(model: nn.Module, img_size: int, objective: Objective,
+                   stain: str = "none"):
+    """``step(images_u8, masks_u8, valid) → (loss, score)`` in eval mode,
+    with wrap-padded samples masked out."""
+    dtype = getattr(model, "compute_dtype", torch.float32)
+
+    @torch.inference_mode()
+    def step(images, masks, valid):
+        model.eval()
+        imgs, msks = eval_transform(images, masks, img_size, dtype, stain)
+        out = model(imgs)
+        return (objective.loss_fn(out, msks, valid),
+                objective.score_fn(out, msks, valid))
+
+    return step
 
 
 def fold_normalize_into_stem(weight: torch.Tensor) -> torch.Tensor:

@@ -7,7 +7,9 @@ against the plain version there); here the CPU path, which is the plain
 version, is held against both Pallas branches — the VMEM-resident
 ``_gn_relu_kernel`` and the DMA-ring ``_gn_relu_dma_kernel`` (blocks over
 15 MiB) — and the kernel's launch plan and split-merge arithmetic are
-checked on the host.
+checked on the host.  The backward, ``GroupNormReLUFunction``, is held
+against ``jax.grad`` through the Pallas custom VJP and through the plain
+XLA reference.
 
 Bounds: f32 ``rtol=atol=1e-5`` (the Pallas-vs-reference bound of
 ``tests/test_pallas_ops.py``); bf16, compared in f32, ``rtol=2**-7,
@@ -21,11 +23,15 @@ import torch
 
 from pdac_pathological_image_segmentation_tpu.ops.pallas.group_norm import (
     group_norm_relu as pallas_group_norm_relu,
+    group_norm_relu_trainable as group_norm_relu_trainable_jax,
     xla_group_norm_relu,
 )
 from pdac_pathological_image_segmentation_tpu_torch.ops.group_norm import (
+    GroupNormReLUFunction,
     group_norm_relu,
     group_norm_relu_reference,
+    group_norm_relu_trainable,
+    group_stats_reference,
     launch_plan,
 )
 
@@ -158,3 +164,114 @@ def test_split_merge_matches_centred_variance():
                                rtol=1e-12)
     np.testing.assert_allclose(acc[2] / acc[0], span.var(dtype=np.float64),
                                rtol=1e-12)
+
+
+# -- the backward (``GroupNormReLUFunction``) --------------------------------
+
+def _grad_inputs(seed, dtype="float32"):
+    """x (2, 64, 8, 8) NCHW, the shapes of ``tests/test_pallas_ops.py``'s
+    trainable-grad test, and a cotangent."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(2, 64, 8, 8)).astype(np.float32)
+    gamma = (rng.normal(size=64) * 0.5 + 1.0).astype(np.float32)
+    beta = (rng.normal(size=64) * 0.1).astype(np.float32)
+    dy = rng.normal(size=(2, 64, 8, 8)).astype(np.float32)
+    if dtype == "bfloat16":
+        x = torch.from_numpy(x).bfloat16().float().numpy()
+        dy = torch.from_numpy(dy).bfloat16().float().numpy()
+    return x, gamma, beta, dy
+
+
+def _port_grads(x, gamma, beta, dy, eps, dtype="float32", relu=True):
+    xt = torch.from_numpy(x).to(getattr(torch, dtype)).requires_grad_()
+    g = torch.from_numpy(gamma).requires_grad_()
+    b = torch.from_numpy(beta).requires_grad_()
+    out = GroupNormReLUFunction.apply(xt, g, b, 32, eps, relu)
+    assert out.grad_fn is not None and out.dtype == xt.dtype
+    out.backward(torch.from_numpy(dy).to(xt.dtype))
+    return xt.grad, g.grad, b.grad
+
+
+@pytest.mark.parametrize("eps", [1e-6, 1e-5])
+@pytest.mark.parametrize("ref", ["pallas_interpret", "xla"])
+def test_backward_matches_jax_grad(eps, ref):
+    """``jax.grad`` through the Pallas custom VJP (interpret mode) or
+    through the plain ``xla_group_norm_relu``, against the port's plain
+    backward, at the bound of ``tests/test_pallas_ops.py``'s trainable-grad
+    test, ``rtol=atol=1e-4``."""
+    import jax
+
+    x, gamma, beta, dy = _grad_inputs(seed=int(eps * 1e6))
+    x_nhwc = jnp.asarray(x.transpose(0, 2, 3, 1))
+    dy_nhwc = jnp.asarray(dy.transpose(0, 2, 3, 1))
+
+    def loss(xv, g, b):
+        if ref == "xla":
+            y = xla_group_norm_relu(xv, g, b, num_groups=32, eps=eps)
+        else:
+            y = group_norm_relu_trainable_jax(xv, g, b, 32, eps, True, True)
+        return jnp.sum(y * dy_nhwc)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(x_nhwc, jnp.asarray(gamma),
+                                             jnp.asarray(beta))
+    dx, dg, db = _port_grads(x, gamma, beta, dy, eps)
+    assert dx.dtype == torch.float32 and dg.dtype == db.dtype == torch.float32
+    np.testing.assert_allclose(dx.numpy().transpose(0, 2, 3, 1),
+                               np.asarray(want[0]), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(dg.numpy(), np.asarray(want[1]), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(db.numpy(), np.asarray(want[2]), rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_backward_bf16_types_and_values():
+    """bf16 in: dx comes back in bf16, dgamma and dbeta in f32.  Against
+    the f32 backward on the same (bf16-representable) inputs: dgamma and
+    dbeta within 2e-2 (f32 sums of the same products; the bf16 forward
+    output moves the ReLU mask where it rounds to zero), dx within one bf16
+    rounding of its value (rtol 2**-7, atol 1e-3) on at least 99.5% of the
+    elements (the rest are where the mask moved)."""
+    x, gamma, beta, dy = _grad_inputs(seed=4, dtype="bfloat16")
+    dx, dg, db = _port_grads(x, gamma, beta, dy, 1e-5, dtype="bfloat16")
+    assert dx.dtype == torch.bfloat16
+    assert dg.dtype == db.dtype == torch.float32
+    fx, fg, fb = _port_grads(x, gamma, beta, dy, 1e-5)
+    close = np.isclose(dx.float().numpy(), fx.numpy(), rtol=2 ** -7,
+                       atol=1e-3)
+    assert close.mean() > 0.995, close.mean()
+    np.testing.assert_allclose(db.numpy(), fb.numpy(), rtol=2e-2, atol=2e-2)
+    np.testing.assert_allclose(dg.numpy(), fg.numpy(), rtol=2e-2, atol=2e-2)
+
+
+def test_backward_without_relu_and_reference_stats():
+    """``relu=False`` differentiates plain GroupNorm: the backward
+    reference from the forward's saved ``[mean, rstd]`` against autograd
+    through ``group_norm_relu_reference``."""
+    x, gamma, beta, dy = _grad_inputs(seed=9)
+    dx, dg, db = _port_grads(x, gamma, beta, dy, 1e-5, relu=False)
+    xt = torch.from_numpy(x).requires_grad_()
+    g = torch.from_numpy(gamma).requires_grad_()
+    b = torch.from_numpy(beta).requires_grad_()
+    group_norm_relu_reference(xt, g, b, 32, 1e-5, relu=False).backward(
+        torch.from_numpy(dy))
+    for got, want in ((dx, xt.grad), (dg, g.grad), (db, b.grad)):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4,
+                                   atol=1e-4)
+    stats = torch.empty(2, 32, 2)
+    group_norm_relu(torch.from_numpy(x), g.detach(), b.detach(), 32, 1e-5,
+                    stats=stats)
+    assert torch.equal(stats, group_stats_reference(torch.from_numpy(x), 32,
+                                                    1e-5))
+
+
+def test_gn_carries_a_grad_fn_only_when_a_gradient_is_wanted():
+    """The repaired fault: a GroupNorm input that needs a gradient gives
+    an output with a ``grad_fn`` (the kernel's output alone had none and
+    cut the graph on the card); without one (serving) the forward runs
+    alone."""
+    x = torch.randn(2, 64, 4, 4, requires_grad=True)
+    g, b = torch.ones(64), torch.zeros(64)
+    assert group_norm_relu_trainable(x, g, b).grad_fn is not None
+    with torch.no_grad():
+        assert group_norm_relu_trainable(x, g, b).grad_fn is None
+    assert group_norm_relu_trainable(x.detach(), g, b).grad_fn is None

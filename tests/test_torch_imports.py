@@ -52,7 +52,10 @@ def test_port_modules_import_without_jax():
         "config", "ops.group_norm", "ops._build", "ops.resize",
         "models.resnet", "models.encoders", "models.fpn", "models.registry",
         "utils.torch_weights", "train.steps", "infer.export", "infer.server",
-        "cli.export", "cli.serve")}
+        "cli.export", "cli.serve", "ops.augment", "ops.fused_augment",
+        "ops.dice", "train.objective", "train.state", "train.schedule",
+        "train.checkpoint", "train.loop", "utils.meters", "data.discovery",
+        "data.loader", "cli.train")}
     assert expected <= set(out["imported"])
     assert [m for m in out["modules"] if _forbidden(m)] == []
 
@@ -113,3 +116,42 @@ def test_cuda_tensor_without_kernel_raises_not_falls_back():
     x = torch.empty(1, 32, 4, 4, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         group_norm_relu(x, torch.ones(32), torch.zeros(32))
+
+
+def test_cli_train_defaults_to_cuda_and_raises_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the card-less "
+                    "behaviour")
+    from pdac_pathological_image_segmentation_tpu_torch.cli import train
+
+    cfg = tmp_path / "cfg.yaml"
+    cfg.write_text("model: fpn\nimg_size: 64\n")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--config", str(cfg), "--save_path", str(tmp_path)])
+    assert not (tmp_path / "pth").exists()
+
+
+def test_train_kernels_raise_on_other_devices_not_fall_back():
+    """The fused augmentation and the GroupNorm backward refuse a tensor
+    that is neither on the CPU nor on a card (a meta tensor here)."""
+    from pdac_pathological_image_segmentation_tpu_torch.ops.augment import (
+        draw_augment_scalars,
+        make_augment_tables,
+    )
+    from pdac_pathological_image_segmentation_tpu_torch.ops.fused_augment import (
+        fused_train_transform,
+    )
+    from pdac_pathological_image_segmentation_tpu_torch.ops.group_norm import (
+        group_norm_relu_backward,
+    )
+
+    tables = make_augment_tables(*draw_augment_scalars(
+        2, torch.Generator().manual_seed(0))).to("meta")
+    images = torch.empty(2, 8, 8, 3, dtype=torch.uint8, device="meta")
+    masks = torch.empty(2, 8, 8, dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_train_transform(images, masks, tables)
+    x = torch.empty(1, 32, 4, 4, device="meta")
+    stats = torch.empty(1, 32, 2, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        group_norm_relu_backward(x, x, torch.ones(32), x, stats)
