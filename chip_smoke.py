@@ -9,17 +9,27 @@ Phases, each of which fails the run (exit code 1) on any error:
    source, all started together) into ``build/torch_kernels/``;
 3. kernel vs plain, each row timed beside its plain version, one PyTorch
    call where one computes the same function (a yardstick only) and the
-   least time the card could take:
+   least time the card could take; each row's ``ms`` is back-to-back calls
+   by CUDA events (the host's time where the host cannot keep up), its
+   ``device_ms`` the kernels' own time per call from ``torch.profiler``,
+   and its ``elementwise_ms`` one elementwise PyTorch call that moves the
+   same bytes (``copy_`` for the forward, ``addcmul`` of dy, x and out for
+   the backward): what a plain streaming kernel reaches at that size:
 
    * ``group_norm_relu`` at the seven GroupNorm sites of FPN@512 (C=128,
      G=32, H=W in 16, 32, 32, 64, 64, 64, 128) at each served bucket's
-     batch (N in 1, 8, 32), in bf16 and f32, so that both the one-split
-     and the multi-split statistics are held; plus, off the path, one
-     ``relu=False`` C=64 G=16 case and a 7x7 plane (the scalar
-     instantiations);
-   * ``group_norm_relu_backward`` at the same sites at the smoke's
-     training batch (32) in bf16 and f32 and at the config's batch (128)
-     in bf16, plus a multi-split (N=8, 128²) and a 7x7 case;
+     batch (N in 1, 8, 32), in bf16 and f32, and at the timed step's
+     batch (128) in bf16; plus, off the path, one ``relu=False`` C=64 G=16
+     case and a 7x7 plane.  Each shape runs the design its plan takes and,
+     where that is the cluster design, the streaming design beside it
+     (through the two private launchers), both held and timed; the 7x7
+     plane is one the plan itself sends to the streaming design (scalar
+     accesses).  Cluster rows print their K and
+     ``cudaOccupancyMaxActiveClusters``;
+   * ``group_norm_relu_backward`` the same way at the same sites at the
+     smoke's training batch (32) in bf16 and f32 and at the config's batch
+     (128) in bf16, plus N=8 at 128² (a multi-split streaming pass) and a
+     7x7 case; every design is run twice and must repeat bitwise;
    * ``fused_train_transform`` at 512² and batch 32 and 128, with tables
      that take all seven geometry cases with the jitter on and off;
 
@@ -27,15 +37,15 @@ Phases, each of which fails the run (exit code 1) on any error:
    reference ``.pth`` → ``cli.export`` (tile 512, bf16) → the HTTP daemon
    with buckets 1/8/32 on the card → 48 PNG tiles from 8 concurrent
    clients and one raw-f32 request; every GroupNorm of every device batch
-   must have gone through the kernel, counted per shape; then direct
-   artifact throughput at bucket 32 and a profile of one bucket-32
-   forward;
+   must have gone through the cluster kernel, counted per shape and per
+   design; then direct artifact throughput at bucket 32 and a profile of
+   one bucket-32 forward;
 5. training end to end, a main path: ``cli.train`` on the values of
    ``configs/train_config.yaml`` (FPN/resnet18, bf16, 512²) with the
    epochs cut to 2 and the batch to 32, on synthetic PNG patches, then a
    rerun with 3 epochs that must resume; every train step must have gone
-   through the augmentation kernel and every GN site through the forward
-   and backward kernels;
+   through the augmentation kernel and every GN site through the cluster
+   forward and backward kernels;
 6. one train step timed at the config's batch (128), 512², bf16, input on
    the card: ms/step, patches/s, peak memory and the profiler's kernels;
 7. card vs CPU: one f32 train step (TF32 off) and the f32 forward;
@@ -83,6 +93,9 @@ PALLAS = "pdac_pathological_image_segmentation_tpu/ops/pallas/group_norm.py"
 PALLAS_AUG = "pdac_pathological_image_segmentation_tpu/ops/pallas/fused_augment.py"
 # the Pallas DMA-ring kernel takes blocks with 4*H*W*C*itemsize > 15 MiB
 PALLAS_VMEM_LIMIT = 15 * 1024 * 1024
+# profiler names of the GN kernels (csrc/group_norm_relu.cu), both designs
+GN_FORWARD_KERNELS = ("gn_fwd_cluster", "gn_stats", "gn_apply")
+GN_BACKWARD_KERNELS = ("gn_bwd_",)
 
 
 def log(msg: str) -> None:
@@ -94,17 +107,33 @@ def set_tf32(on: bool) -> None:
     torch.backends.cuda.matmul.allow_tf32 = on
 
 
-def cuda_ms(fn, warmup: int = 5, iters: int = 20) -> float:
+def cuda_ms(fn, warmup: int = 5, iters: int = 20, windows: int = 5) -> float:
+    """ms per call of ``fn`` by CUDA events: the median of ``windows``
+    windows of ``iters`` back-to-back calls, so that one stall of the host
+    does not decide a row whose calls are host-bound."""
     for _ in range(warmup):
         fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    times = []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return float(np.median(times))
+
+
+def _all_cluster(what: str, by_variant: dict, by_shape: dict) -> None:
+    """Every GN call of a path went through the cluster kernels: the
+    per-variant counts hold only the cluster variant and add up, shape by
+    shape, to the per-shape counts."""
+    cluster = {k[1:]: v for k, v in by_variant.items() if k[0] == "cluster"}
+    if cluster != by_shape or len(cluster) != len(by_variant):
+        raise AssertionError(f"{what}: launches by variant {by_variant}, "
+                             f"by shape {by_shape}: not all cluster")
 
 
 def warm_card(seconds: float = 1.0) -> None:
@@ -148,13 +177,77 @@ def phase_build() -> None:
 
 # -- phase 3 ----------------------------------------------------------------
 
+def device_ms(fn, kernels: int, iters: int = 10):
+    """The device time of ``fn``'s kernels per call, from ``torch.profiler``
+    over ``iters`` calls: beside ``cuda_ms``'s back-to-back time, which is
+    the host's where the host cannot keep up.  None (not measured) unless
+    the profiler saw ``kernels`` kernels per call: a window where it drops
+    events reads below the bound."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [ev for ev in prof.key_averages()
+              if ev.device_type == DeviceType.CUDA]
+    if sum(ev.count for ev in events) != kernels * iters:
+        return None
+    return sum(ev.self_device_time_total for ev in events) / 1e3 / iters
+
+
+def _gn_variants(x: torch.Tensor, g: int, tensors: int, sm_count: int):
+    """[(plan, launcher)] of a GN shape: the plan the wrapper takes and,
+    where that is the cluster design, the streaming design beside it."""
+    from pdac_pathological_image_segmentation_tpu_torch.ops import (
+        group_norm as gn,
+    )
+
+    n, c, h, w = x.shape
+    args = (n, c, h * w, g, x.element_size(), x.data_ptr() % 16 == 0,
+            sm_count)
+    plan = gn.group_norm_plan(*args, tensors=tensors)
+    fwd = {"cluster": gn._forward_cluster, "streaming": gn._forward_streaming}
+    bwd = {"cluster": gn._backward_cluster,
+           "streaming": gn._backward_streaming}
+    launchers = fwd if tensors == 1 else bwd
+    out = [(plan, launchers[plan.variant])]
+    if plan.variant == "cluster":
+        out.append((gn.streaming_plan(*args), launchers["streaming"]))
+    return out
+
+
+# kernels one call launches: the cluster forward one, the backward's
+# cluster kernel and its dgamma/dbeta reduction two, the streaming designs
+# two each
+GN_KERNELS_PER_CALL = {(1, "cluster"): 1, (1, "streaming"): 2,
+                       (2, "cluster"): 2, (2, "streaming"): 2}
+
+
+def _ms_text(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
+def _variant_fields(plan, occupancy) -> dict:
+    return {"variant": plan.variant,
+            "cluster": plan.cluster,
+            "threads": plan.threads,
+            "smem_bytes": plan.smem,
+            "splits": plan.splits,
+            "vec": plan.vec,
+            "max_active_clusters": occupancy}
+
+
 def phase_kernels() -> list:
     import torch.nn.functional as F
 
     from pdac_pathological_image_segmentation_tpu_torch.ops.group_norm import (
-        group_norm_relu,
+        cluster_occupancy,
         group_norm_relu_reference,
-        launch_plan,
     )
 
     set_tf32(False)
@@ -163,8 +256,12 @@ def phase_kernels() -> list:
     cases = [(n, 128, hw, 32, True, dt)
              for dt in (torch.bfloat16, torch.float32)
              for n in BUCKETS for hw in GN_SITES]
+    # the timed train step's batch
+    cases += [(CONFIG_BATCH, 128, hw, 32, True, torch.bfloat16)
+              for hw in GN_SITES]
     # off the served path: no ReLU, and planes that are not a whole number
-    # of 16-byte vectors (the kernel's scalar instantiations)
+    # of 16-byte vectors (the plan sends them to the streaming design, with
+    # scalar accesses)
     cases += [(32, 64, 64, 16, False, torch.float32),
               (8, 128, 7, 32, True, torch.bfloat16),
               (8, 128, 7, 32, True, torch.float32)]
@@ -176,64 +273,79 @@ def phase_kernels() -> list:
              + 0.5).to(dt)
         gamma = torch.rand(c, device="cuda", generator=gen) + 0.5
         beta = torch.randn(c, device="cuda", generator=gen) * 0.1
-        vec, splits, _ = launch_plan(n, c, hw * hw, g, x.element_size(),
-                                     x.data_ptr() % 16 == 0, sm_count)
-        y = group_norm_relu(x, gamma, beta, g, 1e-5, relu)
-        torch.cuda.synchronize()
         ref = group_norm_relu_reference(x, gamma, beta, g, 1e-5, relu)
-        yf, rf = y.float(), ref.float()
-        err = float((yf - rf).abs().max())
-        if dt == torch.float32:
-            ok = torch.allclose(yf, rf, rtol=1e-5, atol=1e-5)
-            same = float((y == ref).float().mean())
-        else:
-            # one bf16 ulp, and nearly every element bit-identical
-            same = float((y == ref).float().mean())
-            ok = torch.allclose(yf, rf, rtol=2 ** -7, atol=1e-5) \
-                and same >= 0.999
-        if not ok or not torch.isfinite(yf).all():
-            raise AssertionError(
-                f"group_norm_relu {shape} {dt} relu={relu} splits={splits} "
-                f"vec={vec}: max_abs_err {err}, bit-identical {same}")
+        rf = ref.float()
         g_lib, b_lib = gamma.to(dt), beta.to(dt)
-        ms = cuda_ms(lambda: group_norm_relu(x, gamma, beta, g, 1e-5, relu))
         plain_ms = cuda_ms(
             lambda: group_norm_relu_reference(x, gamma, beta, g, 1e-5, relu))
         library_ms = cuda_ms(
             lambda: F.relu(F.group_norm(x, g, g_lib, b_lib, 1e-5)) if relu
             else F.group_norm(x, g, g_lib, b_lib, 1e-5))
+        # the same bytes through one elementwise call: x read, y written
+        sink = torch.empty_like(x)
+        elementwise_ms = cuda_ms(lambda: sink.copy_(x))
+        del sink
         elems = n * c * hw * hw
         nbytes = 2 * elems * x.element_size() + 2 * c * 4
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = GN_OPS_PER_ELEMENT * elems / F32_OPS_PER_S * 1e3
+        bound_ms, bound_by = _bound(nbytes, GN_OPS_PER_ELEMENT * elems)
         dma = 4 * hw * hw * c * x.element_size() > PALLAS_VMEM_LIMIT
-        rows.append({
-            "name": "group_norm_relu",
-            "route": "cuda",
-            "source": f"{PKG}/csrc/group_norm_relu.cu",
-            "replaces": f"{PALLAS}:94" if dma else f"{PALLAS}:34",
-            "launches": None,  # filled from the main path's run, by shape
-            "max_abs_err": err,
-            "ms": ms,
-            "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms,
-            "shape": list(shape),
-            "groups": g,
-            "relu": relu,
-            "dtype": str(dt).replace("torch.", ""),
-            "splits": splits,
-            "vec": vec,
-            "fpn_sites": GN_SITES.get(hw, 0) if (c, g, relu) == (128, 32, True)
-            else 0,
-            "bit_identical": same,
-        })
-        log(f"[kernel] {shape} {rows[-1]['dtype']} relu={relu} splits="
-            f"{splits} vec={vec}: err {err:.3g} same {same:.6f} | kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f}, library {library_ms:.4f}, "
-            f"bound {rows[-1]['bound_ms']:.4f}")
-        del x, y, ref, yf, rf
+        for plan, launch in _gn_variants(x, g, 1, sm_count):
+            def call():
+                return launch(x, gamma, beta, g, 1e-5, relu, None, plan)
+
+            y, again = call(), call()
+            torch.cuda.synchronize()
+            yf = y.float()
+            err = float((yf - rf).abs().max())
+            same = float((y == ref).float().mean())
+            if dt == torch.float32:
+                ok = torch.allclose(yf, rf, rtol=1e-5, atol=1e-5)
+            else:
+                # one bf16 ulp, and nearly every element bit-identical
+                ok = torch.allclose(yf, rf, rtol=2 ** -7, atol=1e-5) \
+                    and same >= 0.999
+            repeat = torch.equal(y, again)
+            if not ok or not repeat or not torch.isfinite(yf).all():
+                raise AssertionError(
+                    f"group_norm_relu {shape} {dt} relu={relu} {plan}: "
+                    f"max_abs_err {err}, bit-identical {same}, repeatable "
+                    f"{repeat}")
+            occ = cluster_occupancy(x, g, plan) \
+                if plan.variant == "cluster" else None
+            ms = cuda_ms(call)
+            dev_ms = device_ms(call, GN_KERNELS_PER_CALL[1, plan.variant])
+            rows.append({
+                "name": "group_norm_relu",
+                "route": "cuda",
+                "source": f"{PKG}/csrc/group_norm_relu.cu",
+                "replaces": f"{PALLAS}:94" if dma else f"{PALLAS}:34",
+                "launches": None,  # filled from the main paths' runs
+                "max_abs_err": err,
+                "ms": ms,
+                "device_ms": dev_ms,
+                "plain_ms": plain_ms,
+                "bound_ms": bound_ms,
+                "bound_by": bound_by,
+                "library_ms": library_ms,
+                "elementwise_ms": elementwise_ms,
+                **_variant_fields(plan, occ),
+                "shape": list(shape),
+                "groups": g,
+                "relu": relu,
+                "dtype": str(dt).replace("torch.", ""),
+                "fpn_sites": GN_SITES.get(hw, 0)
+                if (c, g, relu) == (128, 32, True) else 0,
+                "bit_identical": same,
+            })
+            log(f"[kernel] {shape} {rows[-1]['dtype']} relu={relu} "
+                f"{plan.variant} K={plan.cluster} threads={plan.threads} "
+                f"splits={plan.splits} vec={plan.vec} clusters/card={occ}: "
+                f"err {err:.3g} same {same:.6f} | kernel {ms:.4f} ms, "
+                f"device {_ms_text(dev_ms)}, plain {plain_ms:.4f}, library "
+                f"{library_ms:.4f}, copy_ {elementwise_ms:.4f}, bound "
+                f"{bound_ms:.4f}")
+            del y, again, yf
+        del x, ref, rf
     return rows
 
 
@@ -244,15 +356,14 @@ def _bound(nbytes: float, ops: float) -> tuple:
 
 
 def phase_gn_backward_kernels() -> list:
-    """``group_norm_relu_backward`` against its plain version on the
-    forward kernel's own output and statistics."""
+    """``group_norm_relu_backward``'s designs against its plain version on
+    the forward kernel's own output and statistics."""
     import torch.nn.functional as F
 
     from pdac_pathological_image_segmentation_tpu_torch.ops.group_norm import (
+        cluster_occupancy,
         group_norm_relu,
-        group_norm_relu_backward,
         group_norm_relu_backward_reference,
-        launch_plan,
     )
 
     set_tf32(False)
@@ -260,7 +371,8 @@ def phase_gn_backward_kernels() -> list:
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [(TRAIN_BATCH, hw, dt) for dt in (bf16, f32) for hw in GN_SITES]
     cases += [(CONFIG_BATCH, hw, bf16) for hw in GN_SITES]
-    # one multi-split apply pass, and planes of 7x7 (scalar accesses)
+    # a multi-split streaming apply pass, and planes of 7x7 (the plan's
+    # streaming design, scalar accesses)
     cases += [(8, 128, bf16), (8, 128, f32), (8, 7, bf16), (8, 7, f32)]
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -274,37 +386,8 @@ def phase_gn_backward_kernels() -> list:
         dy = torch.randn(shape, device="cuda", generator=gen).to(dt)
         stats = torch.empty(n, g, 2, device="cuda")
         out = group_norm_relu(x, gamma, beta, g, 1e-5, True, stats=stats)
-        vec, splits, _ = launch_plan(n, c, hw * hw, g, x.element_size(),
-                                     x.data_ptr() % 16 == 0, sm_count)
-        dx, dg, db = group_norm_relu_backward(dy, x, gamma, out, stats, g)
-        again = group_norm_relu_backward(dy, x, gamma, out, stats, g)
-        torch.cuda.synchronize()
         ref = group_norm_relu_backward_reference(dy, x, gamma, out, stats, g)
-        errs = [float((a.float() - b.float()).abs().max())
-                for a, b in zip((dx, dg, db), ref)]
-        same = float((dx == ref[0]).float().mean())
-        # dgamma/dbeta: f32 sums over N*H*W in another order
-        ok = all(torch.allclose(a, b, rtol=1e-4,
-                                atol=1e-4 * float(b.abs().max()))
-                 for a, b in zip((dg, db), ref[1:]))
         rdx = ref[0].float()
-        if dt == f32:
-            ok = ok and torch.allclose(dx, rdx, rtol=1e-4, atol=1e-4)
-        else:
-            # one bf16 ulp (m1, m2 are f32 sums taken in another order),
-            # plus 1e-3 of the tensor's largest |dx| where the three terms
-            # cancel; nearly every element bit-identical
-            ok = ok and same >= 0.999 and torch.allclose(
-                dx.float(), rdx, rtol=2 ** -7,
-                atol=1e-3 * float(rdx.abs().max()))
-        repeat = all(torch.equal(a, b) for a, b in zip((dx, dg, db), again))
-        if not ok or not repeat or not torch.isfinite(dx.float()).all():
-            raise AssertionError(
-                f"group_norm_relu_backward {shape} {dt} splits={splits} "
-                f"vec={vec}: max_abs_err dx/dgamma/dbeta {errs}, "
-                f"bit-identical {same}, repeatable {repeat}")
-        ms = cuda_ms(lambda: group_norm_relu_backward(dy, x, gamma, out,
-                                                      stats, g))
         plain_ms = cuda_ms(lambda: group_norm_relu_backward_reference(
             dy, x, gamma, out, stats, g))
         xl = x.detach().requires_grad_()
@@ -313,37 +396,82 @@ def phase_gn_backward_kernels() -> list:
         yl = F.relu(F.group_norm(xl, g, gl, bl, 1e-5))
         library_ms = cuda_ms(lambda: torch.autograd.grad(
             yl, (xl, gl, bl), dy, retain_graph=True))
+        # the same bytes through one elementwise call: dy, x, out read,
+        # one tensor written
+        sink = torch.empty_like(x)
+        elementwise_ms = cuda_ms(
+            lambda: torch.addcmul(dy, x, out, out=sink))
+        del sink
         elems = n * c * hw * hw
         bound_ms, bound_by = _bound(4 * elems * x.element_size() + 3 * c * 4,
                                     GN_BWD_OPS_PER_ELEMENT * elems)
-        rows.append({
-            "name": "group_norm_relu_backward",
-            "route": "cuda",
-            "source": f"{PKG}/csrc/group_norm_relu.cu",
-            "replaces": f"{PALLAS}:316",
-            "launches": None,  # filled from the training path, by shape
-            "max_abs_err": max(errs),
-            "ms": ms,
-            "plain_ms": plain_ms,
-            "bound_ms": bound_ms,
-            "bound_by": bound_by,
-            "library_ms": library_ms,
-            "shape": list(shape),
-            "groups": g,
-            "relu": True,
-            "dtype": str(dt).replace("torch.", ""),
-            "splits": splits,
-            "vec": vec,
-            "fpn_sites": GN_SITES.get(hw, 0),
-            "bit_identical": same,
-            "max_abs_err_dx_dgamma_dbeta": errs,
-        })
-        log(f"[kernel] bwd {shape} {rows[-1]['dtype']} splits={splits} "
-            f"vec={vec}: err dx {errs[0]:.3g} dgamma {errs[1]:.3g} dbeta "
-            f"{errs[2]:.3g} same {same:.6f} | kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f}, library {library_ms:.4f}, bound "
-            f"{bound_ms:.4f}")
-        del x, dy, out, dx, ref, rdx, again, xl, yl
+        for plan, launch in _gn_variants(x, g, 2, sm_count):
+            def call():
+                return launch(dy, x, gamma, out, stats, g, True, plan)
+
+            dx, dg, db = call()
+            again = call()
+            torch.cuda.synchronize()
+            errs = [float((a.float() - b.float()).abs().max())
+                    for a, b in zip((dx, dg, db), ref)]
+            same = float((dx == ref[0]).float().mean())
+            # dgamma/dbeta: f32 sums over N*H*W in another order
+            ok = all(torch.allclose(a, b, rtol=1e-4,
+                                    atol=1e-4 * float(b.abs().max()))
+                     for a, b in zip((dg, db), ref[1:]))
+            if dt == f32:
+                ok = ok and torch.allclose(dx, rdx, rtol=1e-4, atol=1e-4)
+            else:
+                # one bf16 ulp (m1, m2 are f32 sums taken in another
+                # order), plus 1e-3 of the tensor's largest |dx| where the
+                # three terms cancel; nearly every element bit-identical
+                ok = ok and same >= 0.999 and torch.allclose(
+                    dx.float(), rdx, rtol=2 ** -7,
+                    atol=1e-3 * float(rdx.abs().max()))
+            repeat = all(torch.equal(a, b)
+                         for a, b in zip((dx, dg, db), again))
+            if not ok or not repeat or not torch.isfinite(dx.float()).all():
+                raise AssertionError(
+                    f"group_norm_relu_backward {shape} {dt} {plan}: "
+                    f"max_abs_err dx/dgamma/dbeta {errs}, bit-identical "
+                    f"{same}, repeatable {repeat}")
+            occ = cluster_occupancy(x, g, plan, backward=True) \
+                if plan.variant == "cluster" else None
+            ms = cuda_ms(call)
+            dev_ms = device_ms(call, GN_KERNELS_PER_CALL[2, plan.variant])
+            rows.append({
+                "name": "group_norm_relu_backward",
+                "route": "cuda",
+                "source": f"{PKG}/csrc/group_norm_relu.cu",
+                "replaces": f"{PALLAS}:316",
+                "launches": None,  # filled from the training path
+                "max_abs_err": max(errs),
+                "ms": ms,
+                "device_ms": dev_ms,
+                "plain_ms": plain_ms,
+                "bound_ms": bound_ms,
+                "bound_by": bound_by,
+                "library_ms": library_ms,
+                "elementwise_ms": elementwise_ms,
+                **_variant_fields(plan, occ),
+                "shape": list(shape),
+                "groups": g,
+                "relu": True,
+                "dtype": str(dt).replace("torch.", ""),
+                "fpn_sites": GN_SITES.get(hw, 0),
+                "bit_identical": same,
+                "max_abs_err_dx_dgamma_dbeta": errs,
+            })
+            log(f"[kernel] bwd {shape} {rows[-1]['dtype']} {plan.variant} "
+                f"K={plan.cluster} threads={plan.threads} splits="
+                f"{plan.splits} vec={plan.vec} clusters/card={occ}: err dx "
+                f"{errs[0]:.3g} dgamma {errs[1]:.3g} dbeta {errs[2]:.3g} "
+                f"same {same:.6f} | kernel {ms:.4f} ms, device "
+                f"{_ms_text(dev_ms)}, plain {plain_ms:.4f}, library "
+                f"{library_ms:.4f}, addcmul {elementwise_ms:.4f}, bound "
+                f"{bound_ms:.4f}")
+            del dx, dg, db, again
+        del x, dy, out, ref, rdx, xl, yl
     return rows
 
 
@@ -525,6 +653,7 @@ def phase_serving(tmp: Path, card: str) -> tuple:
     # -- the main path: launches counted from here ...
     group_norm_relu.launches = 0
     group_norm_relu.launches_by_shape.clear()
+    group_norm_relu.launches_by_variant.clear()
     server.start(warmup=True)
     serve_thread = threading.Thread(target=server.serve_forever, daemon=True)
     serve_thread.start()
@@ -558,6 +687,7 @@ def phase_serving(tmp: Path, card: str) -> tuple:
         stats = json.loads(r.read())
     launches = group_norm_relu.launches
     by_shape = dict(group_norm_relu.launches_by_shape)
+    by_variant = dict(group_norm_relu.launches_by_variant)
     # -- ... to here
     server.shutdown()
     serve_thread.join(timeout=30)
@@ -596,6 +726,7 @@ def phase_serving(tmp: Path, card: str) -> tuple:
             or sum(per_bucket.values()) != forwards:
         raise AssertionError(f"GN launches by shape {by_shape}, expected "
                              f"{want} over {forwards} forwards")
+    _all_cluster("serving GN forward", by_variant, by_shape)
     log(f"[serve] {stats['requests']} requests in {stats['batches']} device "
         f"batches (+{stats['warmups']} warm-ups), occupancy "
         f"{stats.get('mean_batch_occupancy', 0):.3f}, p50 "
@@ -633,14 +764,14 @@ def phase_serving(tmp: Path, card: str) -> tuple:
                for ev in prof.key_averages()
                if ev.device_type == DeviceType.CUDA}
     total = sum(by_name.values())
-    gn = sum(v for k, v in by_name.items() if "gn_stats" in k
-             or "gn_apply" in k)
+    gn = sum(v for k, v in by_name.items()
+             if any(p in k for p in GN_FORWARD_KERNELS))
     log(f"[profile] bucket-{BUCKETS[-1]} forward: {fwd_ms:.3f} ms by CUDA "
         f"events; profiler device time {total:.3f} ms, GroupNorm kernels "
         f"{gn:.3f} ms ({100 * gn / total if total else 0:.1f}%)")
     for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         log(f"[profile]   {v:8.3f} ms  {k[:110]}")
-    return sd, by_shape
+    return sd, by_variant
 
 
 # -- phase 5: training, the new main path -----------------------------------
@@ -679,7 +810,10 @@ def _train_counters(reset: bool = False) -> dict:
         for fn in fns.values():
             fn.launches = 0
             fn.launches_by_shape.clear()
-    return {k: (fn.launches, dict(fn.launches_by_shape))
+            if hasattr(fn, "launches_by_variant"):
+                fn.launches_by_variant.clear()
+    return {k: (fn.launches, dict(fn.launches_by_shape),
+                dict(getattr(fn, "launches_by_variant", {})))
             for k, fn in fns.items()}
 
 
@@ -754,6 +888,8 @@ def phase_training(tmp: Path) -> dict:
             or counts["augment"][1] != {(TRAIN_BATCH, TILE): steps}:
         raise AssertionError(f"training launches {counts}, expected {want} "
                              f"({steps} steps, {evals} eval batches)")
+    for k in ("gn_forward", "gn_backward"):
+        _all_cluster(f"training {k}", counts[k][2], counts[k][1])
     log(f"[train] 2 epochs in {s1:.1f} s, resumed for a 3rd in {s2:.1f} s; "
         f"losses {[round(h['train_loss'], 4) for h in history]}, val scores "
         f"{[round(h['val_score'], 4) for h in history]}; launches: augment "
@@ -841,8 +977,8 @@ def phase_timed_step(card: str) -> dict:
                if ev.device_type == DeviceType.CUDA}
     total = sum(by_name.values())
     groups = {
-        "gn_forward": ("gn_stats", "gn_apply"),
-        "gn_backward": ("gn_bwd_",),
+        "gn_forward": GN_FORWARD_KERNELS,
+        "gn_backward": GN_BACKWARD_KERNELS,
         "augment": ("augment_kernel",),
     }
     shares = {g: sum(v for k, v in by_name.items()
@@ -989,24 +1125,29 @@ def main() -> int:
     kernels += phase_gn_backward_kernels()
     kernels += phase_augment_kernels()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        sd, serve_by_shape = phase_serving(Path(tmp), card)
+        sd, serve_by_variant = phase_serving(Path(tmp), card)
         train = phase_training(Path(tmp))
-    if not serve_by_shape:
-        raise AssertionError("group_norm_relu was not launched on the path")
     for row in kernels:
-        # launches on the two main paths, by shape: 0 for rows off them
+        # launches on the two main paths, by variant and shape: 0 for rows
+        # off them
         if row["name"] == "fused_train_transform":
             key = (row["shape"][0], TILE)
             paths = {"train": train["augment"][1].get(key, 0)}
         else:
-            key = (*row["shape"], row["dtype"], row["relu"])
+            key = (row["variant"], *row["shape"], row["dtype"], row["relu"])
             if row["name"] == "group_norm_relu":
-                paths = {"serve": serve_by_shape.get(key, 0),
-                         "train": train["gn_forward"][1].get(key, 0)}
+                paths = {"serve": serve_by_variant.get(key, 0),
+                         "train": train["gn_forward"][2].get(key, 0)}
             else:
-                paths = {"train": train["gn_backward"][1].get(key, 0)}
+                paths = {"train": train["gn_backward"][2].get(key, 0)}
         row["launches"] = sum(paths.values())
         row["launches_by_path"] = paths
+    # each kernel of the paths ran on them
+    for name in ("fused_train_transform", "group_norm_relu",
+                 "group_norm_relu_backward"):
+        if not sum(r["launches"] for r in kernels if r["name"] == name
+                   and r.get("variant", "cluster") == "cluster"):
+            raise AssertionError(f"{name} was not launched on the paths")
     phase_timed_step(card)
     phase_train_card_vs_cpu()
     phase_card_vs_cpu(sd)

@@ -2,14 +2,18 @@
 JAX package's Pallas kernels, run in interpret mode, and its plain XLA
 reference.
 
-The port's CUDA kernel runs only on the card (``chip_smoke.py`` holds it
-against the plain version there); here the CPU path, which is the plain
-version, is held against both Pallas branches — the VMEM-resident
-``_gn_relu_kernel`` and the DMA-ring ``_gn_relu_dma_kernel`` (blocks over
-15 MiB) — and the kernel's launch plan and split-merge arithmetic are
-checked on the host.  The backward, ``GroupNormReLUFunction``, is held
-against ``jax.grad`` through the Pallas custom VJP and through the plain
-XLA reference.
+The port's CUDA kernels run only on the card (``chip_smoke.py`` holds
+both designs against the plain version there); here the CPU path, which is
+the plain version, is held against both Pallas branches — the
+VMEM-resident ``_gn_relu_kernel`` and the DMA-ring ``_gn_relu_dma_kernel``
+(blocks over 15 MiB) — and the kernels' launch plans and merge arithmetic
+are checked on the host: the streaming design's split plan and Chan merge,
+the cluster design's plan and, emulated on the host, its statistics
+(per-share sums and centred sums of squares, added in rank order) and its
+backward (per-channel partials of each share, added in rank order, also
+where a channel's plane spans several blocks).  The backward,
+``GroupNormReLUFunction``, is held against ``jax.grad`` through the
+Pallas custom VJP and through the plain XLA reference.
 
 Bounds: f32 ``rtol=atol=1e-5`` (the Pallas-vs-reference bound of
 ``tests/test_pallas_ops.py``); bf16, compared in f32, ``rtol=2**-7,
@@ -26,9 +30,18 @@ from pdac_pathological_image_segmentation_tpu.ops.pallas.group_norm import (
     group_norm_relu_trainable as group_norm_relu_trainable_jax,
     xla_group_norm_relu,
 )
+from pdac_pathological_image_segmentation_tpu_torch.ops import (
+    group_norm as gn,
+)
 from pdac_pathological_image_segmentation_tpu_torch.ops.group_norm import (
+    CLUSTER_SIZES,
+    SMEM_BUDGET,
+    SMEM_LIMIT,
     GroupNormReLUFunction,
+    cluster_plan,
+    group_norm_plan,
     group_norm_relu,
+    group_norm_relu_backward_reference,
     group_norm_relu_reference,
     group_norm_relu_trainable,
     group_stats_reference,
@@ -164,6 +177,225 @@ def test_split_merge_matches_centred_variance():
                                rtol=1e-12)
     np.testing.assert_allclose(acc[2] / acc[0], span.var(dtype=np.float64),
                                rtol=1e-12)
+
+
+# -- the cluster design's plan -------------------------------------------------
+
+# the FPN@512 sites at the served buckets and at the config's batch (128),
+# plus ragged and unaligned-plane shapes
+CLUSTER_SHAPES = PLAN_SHAPES + [(128, 128, hw, 32) for hw in
+                                (16 ** 2, 32 ** 2, 64 ** 2, 128 ** 2)]
+
+
+@pytest.mark.parametrize("tensors", [1, 2], ids=["fwd", "bwd"])
+@pytest.mark.parametrize("itemsize", [4, 2], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", CLUSTER_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_cluster_plan_tiles_each_span(shape, itemsize, tensors):
+    """K is a portable cluster size; each block's share is a whole number
+    of 16-byte vectors that fits the budget (once per kept input), the K
+    shares tile the span exactly, the block's shared memory fits one
+    block's limit; planes that are not whole vectors (7x7, 10x10 in bf16)
+    take the streaming design."""
+    n, c, hw, g = shape
+    span = (c // g) * hw
+    plan = cluster_plan(n, c, hw, g, itemsize, True, 132, tensors)
+    if (hw * itemsize) % 16:
+        assert plan is None
+        got = group_norm_plan(n, c, hw, g, itemsize, True, 132, tensors)
+        assert got.variant == "streaming"
+        return
+    k, threads, smem = plan
+    assert k in CLUSTER_SIZES
+    share = span // k
+    assert share * k == span
+    assert (share * itemsize) % 16 == 0
+    assert tensors * share * itemsize <= SMEM_BUDGET
+    assert smem <= SMEM_LIMIT and threads % 32 == 0 and 64 <= threads <= 256
+    # the shares, in rank order, cover [0, span) once
+    bounds = [(r * share, (r + 1) * share) for r in range(k)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == span
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    # a larger K only where a smaller one leaves the card short of blocks
+    if k > 1 and tensors * span * itemsize <= (k // 2) * SMEM_BUDGET:
+        assert n * g * k <= 2 * 132
+
+
+@pytest.mark.parametrize("shape,itemsize,tensors,want", [
+    ((32, 128, 128 ** 2, 32), 2, 1, 2),  # 128 KiB span: 64 KiB shares
+    ((32, 128, 128 ** 2, 32), 4, 1, 4),  # 256 KiB
+    ((1, 128, 16 ** 2, 32), 2, 1, 8),  # 2 KiB span, 32 spans: 256 blocks
+    ((32, 128, 128 ** 2, 32), 2, 2, 4),  # dy and x: 2 x 128 KiB
+    ((128, 128, 128 ** 2, 32), 2, 2, 4),
+    ((32, 128, 128 ** 2, 32), 4, 2, 8),  # f32: K > cg, planes split
+], ids=["fwd_bf16_32x128", "fwd_f32_32x128", "fwd_bf16_1x16",
+        "bwd_bf16_32x128", "bwd_bf16_128x128", "bwd_f32_32x128"])
+def test_cluster_plan_worked_examples(shape, itemsize, tensors, want):
+    assert cluster_plan(*shape, itemsize, True, 132, tensors)[0] == want
+
+
+@pytest.mark.parametrize("tensors", [1, 2], ids=["fwd", "bwd"])
+def test_streaming_plan_for_unaligned_and_oversized(tensors):
+    """Unaligned tensors and spans over 8 budgets take the streaming
+    design (``launch_plan``'s grid)."""
+    for shape, aligned in (((32, 128, 64 ** 2, 32), False),
+                           ((1, 128, 512 ** 2, 32), True)):
+        plan = group_norm_plan(*shape, 2, aligned, 132, tensors)
+        assert plan.variant == "streaming"
+        assert (plan.vec, plan.splits, plan.chunk) == launch_plan(
+            *shape, 2, aligned, 132)
+
+
+def test_plan_cache_tells_aligned_from_unaligned(monkeypatch):
+    monkeypatch.setattr(gn, "_sm_count", lambda device: 132)
+    monkeypatch.setattr(gn, "_plans", {})
+    x = torch.zeros(32, 128, 64, 64, dtype=torch.bfloat16)
+    cached = gn._plan_for(x, 32, True, 1)
+    assert cached.variant == "cluster" and cached.cluster == 1
+    assert gn._plan_for(x, 32, False, 1).variant == "streaming"
+    assert gn._plan_for(x, 32, True, 1) is cached
+    assert gn._plan_for(x, 32, True, 2) != cached  # the backward's own
+    assert len(gn._plans) == 3
+
+
+def _cluster_forward_emulated(x, gamma, beta, groups, eps, relu, k):
+    """The cluster forward's arithmetic on the host, in f32: per-share sums
+    added in rank order into the mean, then per-share centred sums of
+    squares added in rank order into M2; y = x*scale + shift."""
+    n, c, h, w = x.shape
+    xs = x.float().reshape(n * groups, k, -1)
+    span = xs.shape[1] * xs.shape[2]
+    total = torch.zeros(n * groups)
+    for r in range(k):
+        total = total + xs[:, r].sum(dim=1)
+    mean = total / span
+    m2 = torch.zeros(n * groups)
+    for r in range(k):
+        m2 = m2 + (xs[:, r] - mean[:, None]).square().sum(dim=1)
+    rstd = torch.rsqrt(m2 / span + eps)
+    scale = gamma.view(1, groups, -1) * rstd.view(n, groups, 1)
+    shift = beta.view(1, groups, -1) - mean.view(n, groups, 1) * scale
+    y = x.float() * scale.reshape(n, c, 1, 1) + shift.reshape(n, c, 1, 1)
+    return (torch.relu(y) if relu else y).to(x.dtype)
+
+
+@pytest.mark.parametrize("ref", ["reference", "pallas_interpret"])
+@pytest.mark.parametrize("case", ["vmem_f32", "vmem_bf16", "dma_f32",
+                                  "dma_bf16"])
+def test_cluster_statistics_emulated(case, ref):
+    """The cluster statistics, at the K the plan gives the shape (always
+    above 1 here), against the plain version and the Pallas kernel
+    (interpret), at the bounds of the tests above."""
+    shape, groups, relu, dtype = CASES[case]
+    x, gamma, beta = _inputs(shape, dtype, seed=21 + len(case))
+    xt = torch.from_numpy(np.ascontiguousarray(x.transpose(0, 3, 1, 2)))
+    xt = xt.to(getattr(torch, dtype))
+    n, c, h, w = xt.shape
+    k = cluster_plan(n, c, h * w, groups, xt.element_size(), True, 132)[0]
+    assert k > 1
+    got = _cluster_forward_emulated(xt, torch.from_numpy(gamma),
+                                    torch.from_numpy(beta), groups, EPS,
+                                    relu, k)
+    got = got.float().numpy().transpose(0, 2, 3, 1)
+    if ref == "reference":
+        want = _port(x, gamma, beta, groups, relu, dtype)
+    else:
+        jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+        want = np.asarray(pallas_group_norm_relu(
+            jnp.asarray(x, jdt), jnp.asarray(gamma), jnp.asarray(beta),
+            num_groups=groups, eps=EPS, relu=relu,
+            interpret=True).astype(jnp.float32))
+    _assert_close(got, want, dtype)
+
+
+def _cluster_backward_emulated(dy, x, gamma, out, stats, groups, k):
+    """The cluster backward's arithmetic on the host, in f32: each block's
+    share sums masked dy and dy*xhat per channel (a channel split across
+    blocks where K > cg), the K shares' sums are added in rank order, then
+    m1, m2 and dx; dgamma, dbeta add the per-(n, c) sums over n in order."""
+    n, c, h, w = x.shape
+    cg, hw = c // groups, h * w
+    span = cg * hw
+    share = span // k
+    d = (dy.float() * (out > 0)).reshape(n * groups, span)
+    mean = stats[..., 0].reshape(-1, 1)
+    rstd = stats[..., 1].reshape(-1, 1)
+    xhat = (x.float().reshape(n * groups, span) - mean) * rstd
+    chan = torch.zeros(n * groups, cg, 2)
+    for r in range(k):
+        part = torch.zeros(n * groups, cg, 2)
+        for ch in range(cg):
+            lo, hi = max(r * share, ch * hw), min((r + 1) * share,
+                                                  (ch + 1) * hw)
+            if lo < hi:
+                part[:, ch, 0] = d[:, lo:hi].sum(dim=1)
+                part[:, ch, 1] = (d[:, lo:hi] * xhat[:, lo:hi]).sum(dim=1)
+        chan = chan + part
+    gam = gamma.float().reshape(groups, cg).repeat(n, 1)
+    a1, a2 = torch.zeros(n * groups), torch.zeros(n * groups)
+    for ch in range(cg):
+        a1 = a1 + gam[:, ch] * chan[:, ch, 0]
+        a2 = a2 + gam[:, ch] * chan[:, ch, 1]
+    gc = gam.repeat_interleave(hw, dim=1)
+    dx = (d * gc - (a1 / span)[:, None] - xhat * (a2 / span)[:, None]) * rstd
+    sums = chan.reshape(n, c, 2)
+    dgamma, dbeta = torch.zeros(c), torch.zeros(c)
+    for i in range(n):
+        dbeta = dbeta + sums[i, :, 0]
+        dgamma = dgamma + sums[i, :, 1]
+    return dx.reshape(x.shape).to(x.dtype), dgamma, dbeta
+
+
+@pytest.mark.parametrize("ref", ["reference", "jax_grad_interpret"])
+@pytest.mark.parametrize("shape", [(2, 64, 8, 8), (2, 128, 16, 16),
+                                   (1, 64, 32, 32)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_cluster_backward_emulated(shape, ref):
+    """The cluster backward's per-channel merge, at the K the plan gives
+    the shape (above cg, so planes split across blocks, in the first and
+    last), against the plain backward and ``jax.grad`` through the Pallas
+    custom VJP (interpret), f32, ``rtol=atol=1e-4``."""
+    import jax
+
+    n, c, h, w = shape
+    rng = np.random.default_rng(sum(shape))
+    x = rng.normal(size=shape).astype(np.float32)
+    gamma = (rng.normal(size=c) * 0.5 + 1.0).astype(np.float32)
+    beta = (rng.normal(size=c) * 0.1).astype(np.float32)
+    dy = rng.normal(size=shape).astype(np.float32)
+    xt, gt, bt = map(torch.from_numpy, (x, gamma, beta))
+    k = cluster_plan(n, c, h * w, 32, 4, True, 132, tensors=2)[0]
+    assert k > 1
+    stats = group_stats_reference(xt, 32, 1e-5)
+    out = group_norm_relu_reference(xt, gt, bt, 32, 1e-5)
+    got = _cluster_backward_emulated(torch.from_numpy(dy), xt, gt, out, stats,
+                                     32, k)
+    if ref == "reference":
+        want = group_norm_relu_backward_reference(torch.from_numpy(dy), xt,
+                                                  gt, out, stats, 32)
+        want = [t.numpy() for t in want]
+    else:
+        dy_nhwc = jnp.asarray(dy.transpose(0, 2, 3, 1))
+
+        def loss(xv, g, b):
+            return jnp.sum(group_norm_relu_trainable_jax(
+                xv, g, b, 32, 1e-5, True, True) * dy_nhwc)
+
+        gx, gg, gb = jax.grad(loss, argnums=(0, 1, 2))(
+            jnp.asarray(x.transpose(0, 2, 3, 1)), jnp.asarray(gamma),
+            jnp.asarray(beta))
+        want = [np.asarray(gx).transpose(0, 3, 1, 2), np.asarray(gg),
+                np.asarray(gb)]
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), b, rtol=1e-4, atol=1e-4)
+
+
+def test_cluster_backward_splits_planes():
+    """At least one plan above splits a channel's plane across blocks
+    (K > cg), and one keeps several channels in a block (K < cg)."""
+    k1 = cluster_plan(2, 64, 64, 32, 4, True, 132, tensors=2)[0]
+    k2 = cluster_plan(32, 128, 64 ** 2, 32, 2, True, 132, tensors=2)[0]
+    assert k1 > 64 // 32 and k2 < 128 // 32
 
 
 # -- the backward (``GroupNormReLUFunction``) --------------------------------
