@@ -30,8 +30,13 @@ Phases, each of which fails the run (exit code 1) on any error:
      smoke's training batch (32) in bf16 and f32 and at the config's batch
      (128) in bf16, plus N=8 at 128² (a multi-split streaming pass) and a
      7x7 case; every design is run twice and must repeat bitwise;
-   * ``fused_train_transform`` at 512² and batch 32 and 128, with tables
-     that take all seven geometry cases with the jitter on and off;
+   * ``fused_train_transform`` at 512² and batch 32 and 128 on tables
+     that take all seven geometry cases with the jitter on and off, at
+     batch 128 on the trainer's own draws (``draw_augment_scalars``,
+     seeded), and at 8x200² (rows that are not 16-byte aligned: the
+     byte-load instantiation); its ``copy_ms`` moves the same bytes with
+     no arithmetic (``out.copy_(images.permute(0, 3, 1, 2))`` and
+     ``mout.copy_(masks)``);
 
 4. serving end to end, a main path: a seeded random smp-FPN/resnet18
    reference ``.pth`` → ``cli.export`` (tile 512, bf16) → the HTTP daemon
@@ -96,6 +101,10 @@ PALLAS_VMEM_LIMIT = 15 * 1024 * 1024
 # profiler names of the GN kernels (csrc/group_norm_relu.cu), both designs
 GN_FORWARD_KERNELS = ("gn_fwd_cluster", "gn_stats", "gn_apply")
 GN_BACKWARD_KERNELS = ("gn_bwd_",)
+# profiler names of the augmentation kernels (csrc/fused_augment.cu): four
+# statistics passes and the output pass, five launches a call
+AUG_KERNELS = ("augment_stats_kernel", "augment_out_kernel")
+AUG_LAUNCHES_PER_CALL = 5
 
 
 def log(msg: str) -> None:
@@ -481,8 +490,8 @@ GEOMETRY = [(0, 0, 0), (1, 0, 0), (1, 1, 0), (1, 1, 1), (1, 1, 2),
 
 
 def _augment_tables(n: int, seed: int):
-    """Tables that cycle through the seven geometry cases, each with the
-    jitter on and off, with random factors and slot orders."""
+    """The smoke's tables: they cycle through the seven geometry cases, each
+    with the jitter on and off, with random factors and slot orders."""
     from pdac_pathological_image_segmentation_tpu_torch.ops.augment import (
         make_augment_tables,
     )
@@ -499,31 +508,49 @@ def _augment_tables(n: int, seed: int):
                                torch.from_numpy(ints))
 
 
-def _masks(n: int, seed: int) -> np.ndarray:
+def _masks(n: int, seed: int, size: int = TILE) -> np.ndarray:
     """Filled circles, one per patch, as uint8 {0, 1}."""
     rng = np.random.default_rng(seed)
-    yy, xx = np.mgrid[:TILE, :TILE]
-    out = np.zeros((n, TILE, TILE), np.uint8)
+    yy, xx = np.mgrid[:size, :size]
+    out = np.zeros((n, size, size), np.uint8)
     for i in range(n):
-        cy, cx = rng.integers(TILE // 4, 3 * TILE // 4, 2)
-        r = rng.integers(TILE // 8, TILE // 3)
+        cy, cx = rng.integers(size // 4, 3 * size // 4, 2)
+        r = rng.integers(size // 8, size // 3)
         out[i] = (yy - cy) ** 2 + (xx - cx) ** 2 < r * r
     return out
 
 
+def _trainer_tables(n: int, seed: int):
+    """Tables as the train step draws them (``draw_augment_scalars`` on a
+    seeded host generator): about half the samples jittered, 5% transposed."""
+    from pdac_pathological_image_segmentation_tpu_torch.ops.augment import (
+        draw_augment_scalars,
+        make_augment_tables,
+    )
+
+    gen = torch.Generator().manual_seed(seed)
+    return make_augment_tables(*draw_augment_scalars(n, gen))
+
+
 def phase_augment_kernels() -> list:
     """``fused_train_transform`` against its plain version, the bf16 chain
-    of ``ops/augment.py``, on the same tables."""
+    of ``ops/augment.py``, on the same tables: at 512² on the smoke's tables
+    (batch 32 and 128) and on the trainer's draws (batch 128), and at 200²
+    (rows that are not 16-byte aligned: the byte-load instantiation)."""
     from pdac_pathological_image_segmentation_tpu_torch.ops.fused_augment import (
         fused_train_transform,
         fused_train_transform_reference,
+        vector_path,
     )
 
     rows = []
-    for n in (TRAIN_BATCH, CONFIG_BATCH):
-        images = torch.from_numpy(_tiles(n, seed=20 + n)).cuda()
-        masks = torch.from_numpy(_masks(n, seed=n)).cuda()
-        tables = _augment_tables(n, seed=n).to("cuda")
+    cases = [(TRAIN_BATCH, TILE, "smoke"), (CONFIG_BATCH, TILE, "smoke"),
+             (CONFIG_BATCH, TILE, "trainer"), (8, 200, "smoke")]
+    for n, size, which in cases:
+        images = torch.from_numpy(_tiles(n, seed=20 + n, size=size)).cuda()
+        masks = torch.from_numpy(_masks(n, seed=n, size=size)).cuda()
+        tables = (_augment_tables(n, seed=n) if which == "smoke"
+                  else _trainer_tables(n, seed=n)).to("cuda")
         out, mout = fused_train_transform(images, masks, tables)
         out2, mout2 = fused_train_transform(images, masks, tables)
         torch.cuda.synchronize()
@@ -534,22 +561,37 @@ def phase_augment_kernels() -> list:
         # tests/test_fused_augment.py's bound, here for every element
         beyond = int(((o - r).abs() > 0.06 + 0.02 * r.abs()).sum())
         repeat = torch.equal(out, out2) and torch.equal(mout, mout2)
+        vec = vector_path(size, images, masks, out, mout)
         if not torch.equal(mout, rmask) or same < 0.999 or beyond \
-                or not repeat or not torch.isfinite(o).all():
+                or not repeat or not torch.isfinite(o).all() \
+                or vec != (size % 16 == 0):
             raise AssertionError(
-                f"fused_train_transform n={n}: masks equal "
-                f"{torch.equal(mout, rmask)}, max_abs_err {err}, "
+                f"fused_train_transform n={n} size={size} {which} tables: "
+                f"masks equal {torch.equal(mout, rmask)}, max_abs_err {err}, "
                 f"bit-identical {same}, beyond the bound {beyond}, "
-                f"repeatable {repeat}")
-        ms = cuda_ms(lambda: fused_train_transform(images, masks, tables))
+                f"repeatable {repeat}, 16-byte path {vec}")
+
+        def call():
+            return fused_train_transform(images, masks, tables)
+
+        def copy():
+            # the same bytes with no arithmetic: u8 NHWC read, bf16 NCHW and
+            # f32 masks written
+            out.copy_(images.permute(0, 3, 1, 2))
+            mout.copy_(masks)
+
+        ms = cuda_ms(call)
+        dev_ms = device_ms(call, AUG_LAUNCHES_PER_CALL)
+        copy_ms = cuda_ms(copy)
         plain_ms = cuda_ms(lambda: fused_train_transform_reference(
             images, masks, tables), warmup=2, iters=5)
-        pixels = n * TILE * TILE
+        pixels = n * size * size
         jittered = int(tables.ints[:, 4].sum())
+        transposed = int(tables.geom[:, 0].sum())
         bound_ms, bound_by = _bound(
             pixels * (3 + 1) + pixels * (3 * 2 + 4),
             pixels * AUG_OPS_PER_PIXEL
-            + jittered * TILE * TILE * AUG_JITTER_OPS_PER_PIXEL)
+            + jittered * size * size * AUG_JITTER_OPS_PER_PIXEL)
         rows.append({
             "name": "fused_train_transform",
             "route": "cuda",
@@ -558,33 +600,40 @@ def phase_augment_kernels() -> list:
             "launches": None,  # filled from the training path, by shape
             "max_abs_err": err,
             "ms": ms,
+            "device_ms": dev_ms,
             "plain_ms": plain_ms,
             "bound_ms": bound_ms,
             "bound_by": bound_by,
             "library_ms": None,  # no single PyTorch call computes it
-            "shape": [n, TILE, TILE, 3],
+            "copy_ms": copy_ms,
+            "shape": [n, size, size, 3],
+            "tables": which,
+            "vec": vec,
             "jittered": jittered,
+            "transposed": transposed,
             "bit_identical": same,
         })
-        log(f"[kernel] augment ({n}, {TILE}, {TILE}, 3) jittered {jittered}: "
-            f"err {err:.3g} same {same:.6f}, masks bitwise | kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f}, bound {bound_ms:.4f}")
+        log(f"[kernel] augment ({n}, {size}, {size}, 3) {which} tables, "
+            f"jittered {jittered}, transposed {transposed}, 16-byte path "
+            f"{vec}: err {err:.3g} same {same:.6f}, masks bitwise | kernel "
+            f"{ms:.4f} ms, device {_ms_text(dev_ms)}, copy {copy_ms:.4f}, "
+            f"plain {plain_ms:.4f}, bound {bound_ms:.4f}")
         del images, masks, out, out2, ref, o, r
     return rows
 
 
 # -- phase 4 ----------------------------------------------------------------
 
-def _tiles(n: int, seed: int) -> np.ndarray:
+def _tiles(n: int, seed: int, size: int = TILE) -> np.ndarray:
     """Smooth, tissue-like uint8 tiles: bilinear-upsampled low-resolution
     colour noise plus fine noise."""
     rng = np.random.default_rng(seed)
     coarse = torch.from_numpy(rng.uniform(40, 230, (n, 3, 16, 16))
                               .astype(np.float32))
     smooth = torch.nn.functional.interpolate(
-        coarse, size=(TILE, TILE), mode="bilinear", align_corners=False)
+        coarse, size=(size, size), mode="bilinear", align_corners=False)
     img = smooth.numpy().transpose(0, 2, 3, 1) + rng.normal(
-        0, 12, (n, TILE, TILE, 3))
+        0, 12, (n, size, size, 3))
     return img.clip(0, 255).astype(np.uint8)
 
 
@@ -979,7 +1028,7 @@ def phase_timed_step(card: str) -> dict:
     groups = {
         "gn_forward": GN_FORWARD_KERNELS,
         "gn_backward": GN_BACKWARD_KERNELS,
-        "augment": ("augment_kernel",),
+        "augment": AUG_KERNELS,
     }
     shares = {g: sum(v for k, v in by_name.items()
                      if any(p in k for p in pats))

@@ -238,16 +238,27 @@ def apply_one_of_geom(imgs: torch.Tensor, masks: torch.Tensor,
     return torch.stack(out_i).contiguous(), torch.stack(out_m).contiguous()
 
 
+def unit_bf16(images: torch.Tensor) -> torch.Tensor:
+    """(N,H,W,3) uint8 → bf16 (N,3,H,W) on [0, 1]: ``bf16(u8) / bf16(255)``,
+    the train chain's first step."""
+    bf = torch.bfloat16
+    return images.permute(0, 3, 1, 2).to(bf) / torch.tensor(255.0, dtype=bf)
+
+
+def normalize_bf16(x: torch.Tensor) -> torch.Tensor:
+    """bf16 NCHW on [0, 1] → ``(x − bf16(mean)) / bf16(std)`` in bf16, the
+    train chain's normalize."""
+    bf = torch.bfloat16
+    mean = torch.from_numpy(_MEAN).to(x.device, bf).view(1, 3, 1, 1)
+    std = torch.from_numpy(_STD).to(x.device, bf).view(1, 3, 1, 1)
+    return (x - mean) / std
+
+
 def train_transform(images: torch.Tensor, masks: torch.Tensor,
                     tables: AugmentTables):
     """The default-mode train chain in bfloat16, the plain version of the
     fused kernel: (N,S,S,3) uint8 images and (N,S,S) uint8 masks → bf16
     (N,3,S,S) normalized, augmented images and float32 (N,S,S) masks."""
-    bf = torch.bfloat16
-    x = images.permute(0, 3, 1, 2).to(bf) / torch.tensor(255.0, dtype=bf)
-    x = apply_slot_jitter(x, tables.a_mats, tables.gammas,
+    x = apply_slot_jitter(unit_bf16(images), tables.a_mats, tables.gammas,
                           tables.ints[:, 4] == 1)
-    mean = torch.from_numpy(_MEAN).to(x.device, bf).view(1, 3, 1, 1)
-    std = torch.from_numpy(_STD).to(x.device, bf).view(1, 3, 1, 1)
-    x = (x - mean) / std
-    return apply_one_of_geom(x, masks.float(), tables.ints)
+    return apply_one_of_geom(normalize_bf16(x), masks.float(), tables.ints)

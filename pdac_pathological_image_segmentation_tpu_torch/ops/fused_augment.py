@@ -13,6 +13,13 @@ kernel runs or the call raises.  Square tiles only, as in the JAX kernel.
 The random draws stay outside the kernel (``augment.draw_augment_scalars``
 → ``augment.make_augment_tables``), so tests can feed both versions, and
 the JAX package, the same tables.
+
+The kernel works on 64×64 source tiles.  :func:`out_tile` and
+:func:`in_tile` are its index math (the kernel follows the same formulas):
+where a source tile lands under the geometry ``(t, l, r)`` of
+``augment.geom_bits``, and where each of its pixels lands in that output
+tile.  :func:`lookup_tables` are the byte tables it reads instead of
+dividing.
 """
 
 from __future__ import annotations
@@ -23,12 +30,16 @@ import torch
 
 from pdac_pathological_image_segmentation_tpu_torch.ops.augment import (
     AugmentTables,
+    normalize_bf16,
     train_transform,
+    unit_bf16,
 )
 
 _SOURCE = "fused_augment.cu"
-_PIXELS_PER_BLOCK = 256 * 16  # kPixelsPerBlock in the kernel
+TILE = 64  # kTile in the kernel
+_VEC_BYTES = 16  # the kernel's vector loads and stores
 _SLOTS = 4
+_tables: dict = {}
 
 
 def fused_train_transform_reference(images: torch.Tensor, masks: torch.Tensor,
@@ -38,12 +49,47 @@ def fused_train_transform_reference(images: torch.Tensor, masks: torch.Tensor,
     return train_transform(images, masks, tables)
 
 
+def out_tile(size: int, ty0: int, tx0: int, t: int, l: int, r: int):
+    """``(row0, col0, rows, cols)`` of the output tile that the source tile
+    at ``(ty0, tx0)`` of a ``size``² sample maps to under
+    ``out = (exch@)ˡ Tᵗ(x) (@exch)ʳ``; tiles at the bottom and right edges
+    are ragged."""
+    th, tw = min(TILE, size - ty0), min(TILE, size - tx0)
+    a0, ah, b0, bw = (tx0, tw, ty0, th) if t else (ty0, th, tx0, tw)
+    return (size - a0 - ah if l else a0, size - b0 - bw if r else b0, ah, bw)
+
+
+def in_tile(i, j, th: int, tw: int, t: int, l: int, r: int):
+    """Where pixel ``(i, j)`` of a ``th``×``tw`` source tile lands in its
+    output tile (:func:`out_tile`); ``i``, ``j`` may be arrays."""
+    yr, yc = (j, i) if t else (i, j)
+    ah, bw = (tw, th) if t else (th, tw)
+    return (ah - 1 - yr if l else yr, bw - 1 - yc if r else yc)
+
+
+def lookup_tables(device) -> tuple:
+    """``(unit (256,) f32, norm (3, 256) bf16)`` on ``device``: ``unit[v]``
+    is ``bf16(v / 255)`` and ``norm[c, v]`` the normalized channel-``c``
+    output of an un-jittered byte ``v``, both computed by the plain chain's
+    own steps (``augment.unit_bf16``, ``augment.normalize_bf16``) on that
+    device, so they equal it bit for bit.  Built once per device."""
+    device = torch.device(device)
+    cached = _tables.get(device)
+    if cached is None:
+        byte = torch.arange(256, device=device).to(torch.uint8)
+        unit = unit_bf16(byte.view(1, 1, 256, 1).expand(1, 1, 256, 3))
+        norm = normalize_bf16(unit)[0, :, 0].contiguous()
+        cached = (unit[0, 0, 0].float().contiguous(), norm)
+        _tables[device] = cached
+    return cached
+
+
 def _lib():
     from pdac_pathological_image_segmentation_tpu_torch.ops import _build
 
     fn = _build.load(_SOURCE).pdac_fused_augment
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 2
+        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 3
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -61,6 +107,14 @@ def _check_tables(tables: AugmentTables, n: int, device: torch.device):
             raise ValueError(
                 f"tables.{name} must be a contiguous {dtype} {shape} tensor "
                 f"on {device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def vector_path(size: int, *tensors: torch.Tensor) -> bool:
+    """Whether the kernel takes its 16-byte instantiation: every row of a
+    ``size``² sample starts on a 16-byte boundary (``size % 16 == 0``) and
+    so does each tensor; otherwise its byte-load instantiation runs."""
+    return size % _VEC_BYTES == 0 and all(
+        t.data_ptr() % _VEC_BYTES == 0 for t in tensors)
 
 
 def fused_train_transform(images: torch.Tensor, masks: torch.Tensor,
@@ -95,15 +149,17 @@ def fused_train_transform(images: torch.Tensor, masks: torch.Tensor,
     images, masks = images.contiguous(), masks.contiguous()
     out = torch.empty((n, 3, h, w), dtype=torch.bfloat16, device=images.device)
     mout = torch.empty((n, h, w), dtype=torch.float32, device=images.device)
-    blocks = -(-h * w // _PIXELS_PER_BLOCK)
-    partials = torch.empty(_SLOTS * n * blocks * 3, dtype=torch.float32,
+    tiles = (-(-h // TILE)) ** 2
+    partials = torch.empty(_SLOTS * n * tiles * 3, dtype=torch.float32,
                            device=images.device)
+    unit, norm = lookup_tables(images.device)
     stream = torch.cuda.current_stream(images.device).cuda_stream
     err = _lib()(images.data_ptr(), masks.data_ptr(),
                  tables.a_mats.data_ptr(), tables.gammas.data_ptr(),
                  tables.ints.data_ptr(), tables.geom.data_ptr(),
-                 out.data_ptr(), mout.data_ptr(), partials.data_ptr(), n, h,
-                 stream)
+                 unit.data_ptr(), norm.data_ptr(), out.data_ptr(),
+                 mout.data_ptr(), partials.data_ptr(), n, h,
+                 int(vector_path(h, images, masks, out, mout)), stream)
     if err != 0:
         raise RuntimeError(f"fused augment kernel launch failed: cudaError "
                            f"{err}")

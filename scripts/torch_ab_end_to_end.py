@@ -7,10 +7,11 @@ Each turn runs in a fresh process from the checkout's own directory and
 uses that checkout's ``chip_smoke.py``: ``phase_timed_step`` (one train
 step of ``configs/train_config.yaml``, batch 128, 512², bf16, ms/step by
 CUDA events) and the bucket-32 bf16 forward of FPN/resnet18 with the input
-on the card (the median of five windows of ten calls, by CUDA events).
-The order is parent, change, change, parent, repeated ``--rounds`` times;
-it prints one JSON line per turn and the medians per checkout.  Needs a
-card.
+on the card (the median of five windows of ten calls, by CUDA events),
+with the profiler's device time of the GN and augmentation kernels in one
+step.  The order is parent, change, change, parent, repeated ``--rounds``
+times; it prints one JSON line per turn and the medians per checkout.
+Needs a card.
 """
 
 from __future__ import annotations
@@ -57,6 +58,7 @@ fwd = sorted(times)[2]
 print("RESULT " + json.dumps({"ms_per_step": step["ms_per_step"],
                               "gn_forward_ms": step["shares_ms"]["gn_forward"],
                               "gn_backward_ms": step["shares_ms"]["gn_backward"],
+                              "augment_ms": step["shares_ms"]["augment"],
                               "forward32_ms": fwd, "card": card}))
 """
 
@@ -88,7 +90,7 @@ def main(argv=None) -> int:
     for name, rs in runs.items():
         med = {k: float(np.median([r[k] for r in rs]))
                for k in ("ms_per_step", "forward32_ms", "gn_forward_ms",
-                         "gn_backward_ms")}
+                         "gn_backward_ms", "augment_ms")}
         print(json.dumps({"median": name, "turns": len(rs), **med}),
               flush=True)
     return 0

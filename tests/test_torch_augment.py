@@ -29,6 +29,7 @@ from pdac_pathological_image_segmentation_tpu.ops.pallas.fused_augment import (
 )
 from pdac_pathological_image_segmentation_tpu_torch.ops.augment import (
     AugmentTables,
+    apply_one_of_geom,
     check_supported,
     draw_augment_scalars,
     eval_transform,
@@ -38,8 +39,13 @@ from pdac_pathological_image_segmentation_tpu_torch.ops.augment import (
     train_transform,
 )
 from pdac_pathological_image_segmentation_tpu_torch.ops.fused_augment import (
+    TILE,
     fused_train_transform,
     fused_train_transform_reference,
+    in_tile,
+    lookup_tables,
+    out_tile,
+    vector_path,
 )
 
 S = 64
@@ -228,3 +234,86 @@ def test_unported_options_name_the_roadmap(knob):
         else {"stain": "macenko"}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         check_supported(**kwargs)
+
+
+def test_lookup_tables_are_the_plain_chain_bit_for_bit():
+    """The kernel's byte tables: ``unit`` is bf16(v / 255) rounded to
+    nearest even from the f32 quotient (computed here with numpy alone),
+    ``norm`` the plain chain's output of an un-jittered, unflipped patch
+    that holds every byte value in every channel."""
+    unit, norm = lookup_tables("cpu")
+    assert unit.dtype == torch.float32 and tuple(unit.shape) == (256,)
+    assert norm.dtype == torch.bfloat16 and tuple(norm.shape) == (3, 256)
+    assert lookup_tables(torch.device("cpu")) is lookup_tables("cpu")
+    q = (np.arange(256, dtype=np.float32) / np.float32(255)).view(np.uint32)
+    rne = ((q + 0x7FFF + ((q >> 16) & 1)) >> 16 << 16).astype(np.uint32)
+    np.testing.assert_array_equal(unit.numpy().view(np.uint32), rne)
+    v = np.arange(256).reshape(16, 16)
+    images = np.stack([(v + 85 * c) % 256 for c in range(3)], -1)
+    images = torch.from_numpy(images.astype(np.uint8)[None])
+    facs = torch.ones((1, 4), dtype=torch.float32)
+    ints = torch.tensor([[0, 1, 2, 3, 0, 0, 0, 0]], dtype=torch.int32)
+    out, _ = fused_train_transform_reference(
+        images, torch.zeros((1, 16, 16), dtype=torch.uint8),
+        make_augment_tables(facs, ints))
+    for c in range(3):
+        want = norm[c][images[0, ..., c].flatten().long()]
+        assert torch.equal(out[0, c].flatten(), want)
+
+
+def _geometry(x, t, l, r):
+    """``(exch@)ˡ Tᵗ(x) (@exch)ʳ`` of a 2-D array, by definition."""
+    if t:
+        x = x.T
+    if l:
+        x = x[::-1]
+    if r:
+        x = x[:, ::-1]
+    return x
+
+
+# (t, l, r) of each drawn geometry case (``geom_bits``); (1, 0, 0) and
+# (1, 1, 1) are never drawn, the kernel takes them all the same
+_DRAWN = {tuple(geom_bits(torch.tensor([[0, 1, 2, 3, 0, *g]]))[0].tolist()): g
+          for g in GEOMETRY}
+
+
+@pytest.mark.parametrize("size", [64, 48, 40, 136])
+@pytest.mark.parametrize("t,l,r", [(t, l, r) for t in (0, 1) for l in (0, 1)
+                                   for r in (0, 1)])
+def test_tile_index_math_is_the_geometry(size, t, l, r):
+    """``out_tile`` + ``in_tile`` (the kernel's index math) move every
+    pixel of every source tile, ragged ones included, where the geometry
+    sends it, and each output tile is filled exactly once; where the
+    draws reach (t, l, r), ``apply_one_of_geom`` agrees."""
+    src = np.arange(size * size).reshape(size, size)
+    want = _geometry(src, t, l, r)
+    got = np.full((size, size), -1)
+    for ty0 in range(0, size, TILE):
+        for tx0 in range(0, size, TILE):
+            th, tw = min(TILE, size - ty0), min(TILE, size - tx0)
+            row0, col0, rows, cols = out_tile(size, ty0, tx0, t, l, r)
+            assert (rows, cols) == ((tw, th) if t else (th, tw))
+            i, j = np.mgrid[:th, :tw]
+            oi, oj = in_tile(i, j, th, tw, t, l, r)
+            assert oi.min() == 0 and oi.max() == rows - 1
+            assert oj.min() == 0 and oj.max() == cols - 1
+            assert (got[row0 + oi, col0 + oj] == -1).all()
+            got[row0 + oi, col0 + oj] = src[ty0 + i, tx0 + j]
+    np.testing.assert_array_equal(got, want)
+    if (t, l, r) in _DRAWN:
+        ints = torch.tensor([[0, 1, 2, 3, 0, *_DRAWN[t, l, r]]])
+        img = torch.from_numpy(src.astype(np.float32))
+        moved, _ = apply_one_of_geom(img[None, None], img[None], ints)
+        np.testing.assert_array_equal(moved[0, 0].numpy(), want)
+
+
+@pytest.mark.parametrize("size,offset,vec", [(512, 0, True), (48, 0, True),
+                                             (200, 0, False), (40, 0, False),
+                                             (64, 1, False)])
+def test_vector_path_needs_aligned_rows(size, offset, vec):
+    """The 16-byte instantiation takes sizes that are a multiple of 16 on
+    16-byte aligned tensors; the others take the byte-load one."""
+    buf = torch.empty(size * size * 3 + 16, dtype=torch.uint8)
+    images = buf[offset:offset + size * size * 3]
+    assert vector_path(size, images) is vec
