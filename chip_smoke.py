@@ -45,16 +45,30 @@ Phases, each of which fails the run (exit code 1) on any error:
    must have gone through the cluster kernel, counted per shape and per
    design; then direct artifact throughput at bucket 32 and a profile of
    one bucket-32 forward;
-5. training end to end, a main path: ``cli.train`` on the values of
-   ``configs/train_config.yaml`` (FPN/resnet18, bf16, 512²) with the
-   epochs cut to 2 and the batch to 32, on synthetic PNG patches, then a
-   rerun with 3 epochs that must resume; every train step must have gone
-   through the augmentation kernel and every GN site through the cluster
-   forward and backward kernels;
+4b. unet serving, a main path: a seeded reference ResUNet ``.pth`` →
+   ``cli.export`` with ``head_dtype: bfloat16`` → the same daemon and
+   requests (no GroupNorm may run); then the JAX bench's tile→mask program
+   at batch 512 (512 uint8 tiles of 512² on the card): ms by CUDA events,
+   tiles/s, peak memory and a profile by kernel;
+5. training end to end, a main path each for FPN and ResUNet:
+   ``cli.train`` on the values of ``configs/train_config.yaml`` (bf16,
+   512²) with the epochs cut to 2 and the batch to 32, on synthetic PNG
+   patches, then a rerun with 3 epochs that must resume; every train step
+   must have gone through the augmentation kernel and, for FPN, every GN
+   site through the cluster forward and backward kernels;
+5c. evaluation, a main path: ``cli.test --device cuda`` on the FPN and the
+   ResUNet ``best.pth`` of phase 5 (16 test patches, batch 8, no figures,
+   so matplotlib is not required); the GN forward launches must be
+   7 x the FPN eval batches, all cluster, and ``metrics.csv`` and
+   ``threshold_sweep.csv`` whole; then each in f32 on the card and on the
+   CPU, ``test_score`` within 1e-3;
 6. one train step timed at the config's batch (128), 512², bf16, input on
-   the card: ms/step, patches/s, peak memory and the profiler's kernels;
-7. card vs CPU: one f32 train step (TF32 off) and the f32 forward;
-8. bf16 vs f32 on the card: mask agreement at 0.5.
+   the card, for FPN and for ResUNet: ms/step, patches/s, peak memory and
+   the profiler's kernels;
+7. card vs CPU, both models: one f32 train step (TF32 off) and the f32
+   forward;
+8. bf16 vs f32 on the card: mask agreement at 0.5 (ResUNet with its bf16
+   head).
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -94,6 +108,8 @@ AUG_OPS_PER_PIXEL = 3 + 6
 AUG_JITTER_OPS_PER_PIXEL = 4 * 3 * 8
 TRAIN_BATCH = 32  # the smoke's cut of the config's batch
 CONFIG_BATCH = 128  # configs/train_config.yaml
+EVAL_BATCH = 8  # cli.test's batch: a served bucket's, and cheap on the CPU
+UNET_INFER_BATCH = 512  # the JAX bench's tile->mask batch (bench.py)
 PALLAS = "pdac_pathological_image_segmentation_tpu/ops/pallas/group_norm.py"
 PALLAS_AUG = "pdac_pathological_image_segmentation_tpu/ops/pallas/fused_augment.py"
 # the Pallas DMA-ring kernel takes blocks with 4*H*W*C*itemsize > 15 MiB
@@ -658,9 +674,10 @@ def _write_reference_pth(cfg, path: Path, seed: int) -> dict:
     return sd
 
 
-def phase_serving(tmp: Path, card: str) -> tuple:
+def _export(tmp: Path, cfg_d: dict, name: str):
+    """A seeded reference ``.pth`` for ``cfg_d`` → ``cli.export`` (tile 512)
+    → the artifact loaded on the card; returns the weights and it."""
     import yaml
-    from PIL import Image
 
     from pdac_pathological_image_segmentation_tpu_torch import Config
     from pdac_pathological_image_segmentation_tpu_torch.cli import (
@@ -669,23 +686,31 @@ def phase_serving(tmp: Path, card: str) -> tuple:
     from pdac_pathological_image_segmentation_tpu_torch.infer.export import (
         load_serving_artifact,
     )
+
+    cfg_path = tmp / f"{name}.yaml"
+    cfg_path.write_text(yaml.safe_dump(cfg_d))
+    pth = tmp / f"{name}.pth"
+    sd = _write_reference_pth(Config.from_dict(cfg_d), pth, seed=0)
+    art_path = tmp / f"{name}.pdacpt"
+    cli_export.main(["--config", str(cfg_path), "--pth_path", str(pth),
+                     "--out", str(art_path), "--tile", str(TILE)])
+    return sd, load_serving_artifact(str(art_path), device="cuda")
+
+
+def _serve_http(artifact) -> dict:
+    """48 PNG tiles from 8 concurrent clients and one raw-f32 request over
+    HTTP, the daemon on the card at buckets 1/8/32: every response whole,
+    the raw one bit-equal to a direct artifact call.  The GN counters are
+    set to 0 just before the daemon starts and read just after the last
+    response; returns them with the daemon's stats."""
+    from PIL import Image
+
     from pdac_pathological_image_segmentation_tpu_torch.infer.server import (
         SegmentationServer,
     )
     from pdac_pathological_image_segmentation_tpu_torch.ops.group_norm import (
         group_norm_relu,
     )
-
-    set_tf32(False)
-    cfg_d = {"model": "fpn", "backbone": "resnet18", "img_size": TILE,
-             "compute_dtype": "bfloat16"}
-    (tmp / "cfg.yaml").write_text(yaml.safe_dump(cfg_d))
-    pth = tmp / "best.pth"
-    sd = _write_reference_pth(Config(**cfg_d), pth, seed=0)
-    art_path = tmp / "fpn512.pdacpt"
-    cli_export.main(["--config", str(tmp / "cfg.yaml"), "--pth_path",
-                     str(pth), "--out", str(art_path), "--tile", str(TILE)])
-    artifact = load_serving_artifact(str(art_path), device="cuda")
 
     n_tiles, n_clients = 48, 8
     tiles = _tiles(n_tiles, seed=1)
@@ -758,9 +783,50 @@ def phase_serving(tmp: Path, card: str) -> tuple:
     if not (np.isfinite(direct).all() and 0 <= direct.min()
             and direct.max() <= 1):
         raise AssertionError("probabilities out of [0, 1] or not finite")
+    if stats["requests"] != n_tiles + 1:
+        raise AssertionError(f"daemon stats {stats}")
+    return {"stats": stats, "launches": launches, "by_shape": by_shape,
+            "by_variant": by_variant, "http_s": http_s,
+            "n_clients": n_clients}
+
+
+def _serve_log(what: str, served: dict) -> str:
+    stats = served["stats"]
+    return (f"[serve] {what}: {stats['requests']} requests in "
+            f"{stats['batches']} device batches (+{stats['warmups']} "
+            f"warm-ups), occupancy {stats.get('mean_batch_occupancy', 0):.3f},"
+            f" p50 {stats.get('latency_ms_p50', 0):.1f} ms, p99 "
+            f"{stats.get('latency_ms_p99', 0):.1f} ms; 48 PNG tiles over HTTP "
+            f"from {served['n_clients']} clients in {served['http_s']:.2f} s, "
+            "the raw response bit-equal to a direct call")
+
+
+def _profile_by_kernel(fn) -> dict:
+    """Device ms by kernel name of one call of ``fn`` (kernels only: an
+    operator's device time is its kernels' again)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {ev.key: ev.self_device_time_total / 1e3
+            for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA}
+
+
+def phase_serving(tmp: Path, card: str) -> tuple:
+    set_tf32(False)
+    sd, artifact = _export(tmp, {"model": "fpn", "backbone": "resnet18",
+                                 "img_size": TILE,
+                                 "compute_dtype": "bfloat16"}, "fpn512")
+    served = _serve_http(artifact)
+    stats, launches = served["stats"], served["launches"]
+    by_shape, by_variant = served["by_shape"], served["by_variant"]
     forwards = stats["batches"] + stats["warmups"]
     expected = sum(GN_SITES.values()) * forwards
-    if launches != expected or stats["requests"] != n_tiles + 1:
+    if launches != expected:
         raise AssertionError(
             f"GN launches {launches}, expected 7 x ({stats['batches']} "
             f"batches + {stats['warmups']} warm-ups) = {expected}; stats "
@@ -776,14 +842,9 @@ def phase_serving(tmp: Path, card: str) -> tuple:
         raise AssertionError(f"GN launches by shape {by_shape}, expected "
                              f"{want} over {forwards} forwards")
     _all_cluster("serving GN forward", by_variant, by_shape)
-    log(f"[serve] {stats['requests']} requests in {stats['batches']} device "
-        f"batches (+{stats['warmups']} warm-ups), occupancy "
-        f"{stats.get('mean_batch_occupancy', 0):.3f}, p50 "
-        f"{stats.get('latency_ms_p50', 0):.1f} ms, p99 "
-        f"{stats.get('latency_ms_p99', 0):.1f} ms; 48 PNG tiles over HTTP "
-        f"from {n_clients} clients in {http_s:.2f} s; GN kernel launches "
-        f"{launches} = 7 x (batches + warm-ups); forwards by bucket "
-        f"{per_bucket}")
+    log(_serve_log("fpn/resnet18", served)
+        + f"; GN kernel launches {launches} = 7 x (batches + warm-ups); "
+        f"forwards by bucket {per_bucket}")
 
     # direct artifact throughput at the largest bucket (H2D + D2H included)
     batch = _tiles(BUCKETS[-1], seed=3)
@@ -801,17 +862,7 @@ def phase_serving(tmp: Path, card: str) -> tuple:
     x = torch.from_numpy(batch).cuda()
     step = artifact.step
     fwd_ms = cuda_ms(lambda: step(x), warmup=2, iters=10)
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        step(x)
-        torch.cuda.synchronize()
-    # kernels only: an operator's device time is its kernels' again
-    by_name = {ev.key: ev.self_device_time_total / 1e3
-               for ev in prof.key_averages()
-               if ev.device_type == DeviceType.CUDA}
+    by_name = _profile_by_kernel(lambda: step(x))
     total = sum(by_name.values())
     gn = sum(v for k, v in by_name.items()
              if any(p in k for p in GN_FORWARD_KERNELS))
@@ -821,6 +872,53 @@ def phase_serving(tmp: Path, card: str) -> tuple:
     for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         log(f"[profile]   {v:8.3f} ms  {k[:110]}")
     return sd, by_variant
+
+
+def phase_unet_serving(tmp: Path, card: str) -> dict:
+    """ResUNet (the reference's own model) exported with ``head_dtype:
+    bfloat16``, served over HTTP as FPN is, then the bench's tile→mask
+    program timed at batch 512 with the input on the card.  ResUNet has no
+    GroupNorm: the daemon must launch no GN kernel."""
+    set_tf32(False)
+    sd, artifact = _export(tmp, {"model": "unet", "img_size": TILE,
+                                 "compute_dtype": "bfloat16",
+                                 "head_dtype": "bfloat16"}, "unet512")
+    if artifact.meta.get("head_dtype") != "bfloat16":
+        raise AssertionError(f"unet artifact metadata {artifact.meta}")
+    served = _serve_http(artifact)
+    if served["launches"]:
+        raise AssertionError(f"unet serving launched GN {served['launches']}"
+                             " times")
+    log(_serve_log("unet/resnet18, head bf16", served))
+
+    # the bench's program: 512 tiles of 512² uint8 on the card → masks
+    step = artifact.step
+    x = torch.from_numpy(_tiles(32, seed=6)).cuda().repeat(
+        UNET_INFER_BATCH // 32, 1, 1, 1)
+    step(x)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(lambda: step(x), warmup=1, iters=4, windows=3)
+    peak = torch.cuda.max_memory_allocated()
+    probs = step(x)
+    if tuple(probs.shape) != (UNET_INFER_BATCH, TILE, TILE) \
+            or not torch.isfinite(probs).all():
+        raise AssertionError(f"batch-512 probabilities {tuple(probs.shape)}")
+    del probs
+    by_name = _profile_by_kernel(lambda: step(x))
+    total = sum(by_name.values())
+    log(f"[unet-infer] tile->mask at batch {UNET_INFER_BATCH}, {TILE}² uint8 "
+        f"in ({x.numel() / 1e9:.3f} GB), bf16, head bf16, input on the "
+        f"card: {ms:.3f} ms by CUDA events, "
+        f"{UNET_INFER_BATCH * 1e3 / ms:.1f} tiles/s, peak memory "
+        f"{peak / 2 ** 30:.2f} GiB, on {card}")
+    log(f"[profile] one batch-{UNET_INFER_BATCH} unet forward: profiler "
+        f"device time {total:.3f} ms, idle share "
+        f"{max(0.0, 1 - total / ms):.3f}")
+    for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        log(f"[profile]   {v:8.3f} ms  {k[:110]}")
+    del x
+    return {"sd": sd, "infer_ms": ms, "peak_bytes": peak}
 
 
 # -- phase 5: training, the new main path -----------------------------------
@@ -883,32 +981,52 @@ def _run_cli_train(cfg_path: Path, out: Path) -> tuple:
     return result, buf.getvalue(), seconds
 
 
-def phase_training(tmp: Path) -> dict:
+N_TRAIN, N_VAL, N_TEST = 96, 32, 16
+
+
+def phase_data(tmp: Path) -> None:
+    """Synthetic 512² PNG patches: train and val for the training phases,
+    test for the evaluation phase."""
+    t0 = time.perf_counter()
+    for split, n, seed in (("train", N_TRAIN, 30), ("val", N_VAL, 31),
+                           ("test", N_TEST, 32)):
+        _write_patches(tmp / "data" / split, n, seed)
+    log(f"[data] {N_TRAIN} train + {N_VAL} val + {N_TEST} test synthetic "
+        f"{TILE}² PNG patches in {time.perf_counter() - t0:.1f} s")
+
+
+def _train_config(tmp: Path, model: str, epochs: int) -> tuple:
+    """``configs/train_config.yaml`` for ``model`` with the smoke's cuts and
+    the synthetic splits; its path and the cuts."""
     import yaml
 
-    n_train, n_val = 96, 32
-    t0 = time.perf_counter()
-    _write_patches(tmp / "data" / "train", n_train, seed=30)
-    _write_patches(tmp / "data" / "val", n_val, seed=31)
     cfg = yaml.safe_load((ROOT / "configs" / "train_config.yaml").read_text())
-    cuts = {"epochs": (cfg["epochs"], 2),
+    cuts = {"epochs": (cfg["epochs"], epochs),
             "batch_size": (cfg["batch_size"], TRAIN_BATCH)}
     cfg.update({k: v[1] for k, v in cuts.items()})
-    cfg.update({"train_path": str(tmp / "data" / "train"),
-                "val_path": str(tmp / "data" / "val")})
-    cfg_path = tmp / "train.yaml"
+    cfg.update({"model": model, "train_path": str(tmp / "data" / "train"),
+                "val_path": str(tmp / "data" / "val"),
+                "test_path": str(tmp / "data" / "test")})
+    cfg_path = tmp / f"train_{model}.yaml"
     cfg_path.write_text(yaml.safe_dump(cfg))
-    log(f"[train] {n_train} train + {n_val} val synthetic {TILE}² PNG patches "
-        f"in {time.perf_counter() - t0:.1f} s; configs/train_config.yaml "
+    return cfg_path, cfg, cuts
+
+
+def phase_training(tmp: Path, model: str = "fpn") -> dict:
+    """``cli.train`` for 2 epochs, then a rerun with 3 that must resume;
+    every train step through the augmentation kernel and, for FPN, every
+    GN site through the cluster forward and backward kernels (ResUNet has
+    no GroupNorm: none may run)."""
+    cfg_path, cfg, cuts = _train_config(tmp, model, epochs=2)
+    log(f"[train] {model}: configs/train_config.yaml "
         f"({cfg['model']}/{cfg['backbone']}, {cfg['compute_dtype']}, "
         f"img_size {cfg['img_size']}, lr {cfg['lr']}) with the cuts "
         + ", ".join(f"{k} {a} -> {b}" for k, (a, b) in cuts.items()))
-    out = tmp / "train_out"
+    out = tmp / f"train_{model}_out"
     # -- the main path: launches counted from here ...
     _train_counters(reset=True)
     first, _, s1 = _run_cli_train(cfg_path, out)
-    cfg["epochs"] = 3
-    cfg_path.write_text(yaml.safe_dump(cfg))
+    _train_config(tmp, model, epochs=3)
     second, printed, s2 = _run_cli_train(cfg_path, out)
     counts = _train_counters()
     # -- ... to here
@@ -922,14 +1040,15 @@ def phase_training(tmp: Path) -> dict:
     for name in ("latest.pth", "best.pth"):
         if not (out / "pth" / name).is_file():
             raise AssertionError(f"{name} was not written")
-    steps = 3 * -(-n_train // TRAIN_BATCH)
-    evals = 3 * -(-n_val // TRAIN_BATCH)
-    sites = sum(GN_SITES.values())
+    steps = 3 * -(-N_TRAIN // TRAIN_BATCH)
+    evals = 3 * -(-N_VAL // TRAIN_BATCH)
+    sites = sum(GN_SITES.values()) if model == "fpn" else 0
     want = {"augment": steps, "gn_backward": sites * steps,
             "gn_forward": sites * (steps + evals)}
     got = {k: v[0] for k, v in counts.items()}
     want_fwd = {(TRAIN_BATCH, 128, hw, hw, "bfloat16", True):
-                k * (steps + evals) for hw, k in GN_SITES.items()}
+                k * (steps + evals) for hw, k in GN_SITES.items()} \
+        if sites else {}
     want_bwd = {key: v // (steps + evals) * steps
                 for key, v in want_fwd.items()}
     if got != want or counts["gn_forward"][1] != want_fwd \
@@ -939,13 +1058,108 @@ def phase_training(tmp: Path) -> dict:
                              f"({steps} steps, {evals} eval batches)")
     for k in ("gn_forward", "gn_backward"):
         _all_cluster(f"training {k}", counts[k][2], counts[k][1])
-    log(f"[train] 2 epochs in {s1:.1f} s, resumed for a 3rd in {s2:.1f} s; "
-        f"losses {[round(h['train_loss'], 4) for h in history]}, val scores "
-        f"{[round(h['val_score'], 4) for h in history]}; launches: augment "
-        f"{got['augment']} = {steps} steps, GN backward "
-        f"{got['gn_backward']} = 7 x {steps}, GN forward {got['gn_forward']} "
-        f"= 7 x ({steps} steps + {evals} eval batches)")
+    log(f"[train] {model}: 2 epochs in {s1:.1f} s, resumed for a 3rd in "
+        f"{s2:.1f} s; losses {[round(h['train_loss'], 4) for h in history]},"
+        f" val scores {[round(h['val_score'], 4) for h in history]}; "
+        f"launches: augment {got['augment']} = {steps} steps, GN backward "
+        f"{got['gn_backward']} = {sites} x {steps}, GN forward "
+        f"{got['gn_forward']} = {sites} x ({steps} steps + {evals} eval "
+        "batches)")
     return counts
+
+
+# -- phase 5c: evaluation ---------------------------------------------------
+
+def _run_cli_test(cfg_path: Path, pth: Path, out: Path, device: str) -> dict:
+    from pdac_pathological_image_segmentation_tpu_torch.cli import (
+        test as cli_test,
+    )
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        # no figures: they need matplotlib, which the smoke does not
+        # require of the card's host
+        result = cli_test.main(["--config", str(cfg_path), "--save_path",
+                                str(out), "--pth_path", str(pth),
+                                "--max_figures", "0", "--device", device])
+    result["seconds"] = time.perf_counter() - t0
+    for line in buf.getvalue().splitlines():
+        log(f"[test]   {line}")
+    return result
+
+
+def phase_evaluation(tmp: Path) -> dict:
+    """``cli.test --device cuda`` on the FPN and the unet ``best.pth`` of
+    the training phases (bf16, the config's), then each again in f32 on
+    the card (TF32 off) and on the CPU."""
+    import yaml
+
+    from pdac_pathological_image_segmentation_tpu_torch.ops.group_norm import (
+        group_norm_relu,
+    )
+
+    set_tf32(False)
+    cfgs = {}
+    for model in ("fpn", "unet"):
+        cfg_path, cfg, _ = _train_config(tmp, model, epochs=3)
+        cfg["batch_size"] = EVAL_BATCH
+        for dtype in ("bfloat16", "float32"):
+            path = tmp / f"test_{model}_{dtype}.yaml"
+            path.write_text(yaml.safe_dump(dict(cfg, compute_dtype=dtype)))
+            cfgs[model, dtype] = path
+    pths = {m: tmp / f"train_{m}_out" / "pth" for m in ("fpn", "unet")}
+    # -- the main path: launches counted from here ...
+    group_norm_relu.launches = 0
+    group_norm_relu.launches_by_shape.clear()
+    group_norm_relu.launches_by_variant.clear()
+    runs = {m: _run_cli_test(cfgs[m, "bfloat16"], pths[m],
+                             tmp / f"test_{m}_out", "cuda")
+            for m in ("fpn", "unet")}
+    launches = group_norm_relu.launches
+    by_shape = dict(group_norm_relu.launches_by_shape)
+    by_variant = dict(group_norm_relu.launches_by_variant)
+    # -- ... to here
+    batches = -(-N_TEST // EVAL_BATCH)
+    want = {(EVAL_BATCH, 128, hw, hw, "bfloat16", True): k * batches
+            for hw, k in GN_SITES.items()}
+    if launches != sum(GN_SITES.values()) * batches or by_shape != want:
+        raise AssertionError(f"evaluation GN launches {launches} {by_shape},"
+                             f" expected 7 x {batches} FPN batches: {want}")
+    _all_cluster("evaluation GN forward", by_variant, by_shape)
+    for m, res in runs.items():
+        out = tmp / f"test_{m}_out"
+        rows = (out / "metrics.csv").read_text().splitlines()
+        sweep = (out / "threshold_sweep.csv").read_text().splitlines()
+        if len(rows) != 1 + N_TEST + 2 or len(sweep) != 1 + 257 \
+                or res["n_samples"] != N_TEST or not all(np.isfinite(
+                    [res["test_score"], res["test_loss"],
+                     res["best_dice"]])):
+            raise AssertionError(f"cli.test {m}: {res}, metrics.csv "
+                                 f"{len(rows)} lines, sweep {len(sweep)}")
+        log(f"[test] {m} bf16 on the card: test_score {res['test_score']:.6f}"
+            f" test_loss {res['test_loss']:.6f}, best threshold "
+            f"{res['best_threshold']:.4f} (dice {res['best_dice']:.6f}), "
+            f"metrics.csv {len(rows) - 3} samples + macro/micro, "
+            f"threshold_sweep.csv 257 rows, {res['seconds']:.1f} s")
+    log(f"[test] GN forward launches {launches} = 7 x {batches} FPN eval "
+        "batches, all cluster; unet launched none")
+    # card vs CPU, f32 (comparison runs: not counted)
+    for m in ("fpn", "unet"):
+        card = _run_cli_test(cfgs[m, "float32"], pths[m],
+                             tmp / f"test_{m}_card32", "cuda")
+        cpu = _run_cli_test(cfgs[m, "float32"], pths[m],
+                            tmp / f"test_{m}_cpu32", "cpu")
+        d_score = abs(card["test_score"] - cpu["test_score"])
+        d_loss = abs(card["test_loss"] - cpu["test_loss"])
+        if d_score > 1e-3 or not np.isfinite(d_loss):
+            raise AssertionError(f"cli.test {m} f32 card vs CPU: test_score "
+                                 f"{card['test_score']} vs "
+                                 f"{cpu['test_score']}")
+        log(f"[test] {m} f32, card vs CPU: test_score {card['test_score']:.6f}"
+            f" vs {cpu['test_score']:.6f} (|Δ| {d_score:.3g}, bound 1e-3), "
+            f"test_loss |Δ| {d_loss:.3g}; CPU run {cpu['seconds']:.1f} s")
+    return {"by_variant": by_variant}
 
 
 # -- phase 6: the timed train step ------------------------------------------
@@ -972,10 +1186,8 @@ def _train_setup(cfg, sd: dict, device: str):
                                   make_objective(cfg))
 
 
-def phase_timed_step(card: str) -> dict:
+def phase_timed_step(card: str, model: str = "fpn") -> dict:
     import yaml
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from pdac_pathological_image_segmentation_tpu_torch import Config
     from pdac_pathological_image_segmentation_tpu_torch.models import (
@@ -991,10 +1203,11 @@ def phase_timed_step(card: str) -> dict:
     set_tf32(False)
     raw = yaml.safe_load((ROOT / "configs" / "train_config.yaml").read_text())
     raw.pop("train_path"), raw.pop("val_path"), raw.pop("test_path")
+    raw["model"] = model
     cfg = Config.from_dict(raw)
     n = cfg.batch_size
     sd = seeded_state_dict(build_model(cfg), seed=7)
-    model, step = _train_setup(cfg, sd, "cuda")
+    _, step = _train_setup(cfg, sd, "cuda")
     images = torch.from_numpy(_tiles(n, seed=8)).cuda()
     masks = torch.from_numpy(_masks(n, seed=8)).cuda()
     valid = torch.ones(n, dtype=torch.bool, device="cuda")
@@ -1017,13 +1230,8 @@ def phase_timed_step(card: str) -> dict:
     peak = torch.cuda.max_memory_allocated()
     if not (np.isfinite(float(loss)) and np.isfinite(float(score))):
         raise AssertionError(f"timed step: loss {loss}, score {score}")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        step(images, masks, valid, gens[15])
-        torch.cuda.synchronize()
-    by_name = {ev.key: ev.self_device_time_total / 1e3
-               for ev in prof.key_averages()
-               if ev.device_type == DeviceType.CUDA}
+    by_name = _profile_by_kernel(
+        lambda: step(images, masks, valid, gens[15]))
     total = sum(by_name.values())
     groups = {
         "gn_forward": GN_FORWARD_KERNELS,
@@ -1033,11 +1241,11 @@ def phase_timed_step(card: str) -> dict:
     shares = {g: sum(v for k, v in by_name.items()
                      if any(p in k for p in pats))
               for g, pats in groups.items()}
-    log(f"[step] train step at batch {n}, {cfg.img_size}², "
+    log(f"[step] {model} train step at batch {n}, {cfg.img_size}², "
         f"{cfg.compute_dtype}, input on the card: {ms:.2f} ms/step by CUDA "
         f"events ({host_ms:.2f} by the host clock), {n * 1e3 / ms:.1f} "
         f"patches/s, peak memory {peak / 2 ** 30:.2f} GiB, on {card}")
-    log(f"[profile] one step: profiler device time {total:.2f} ms, idle "
+    log(f"[profile] one {model} step: profiler device time {total:.2f} ms, idle "
         f"share {max(0.0, 1 - total / ms):.3f} of the timed step; "
         + ", ".join(f"{g} {v:.3f} ms ({100 * v / total if total else 0:.1f}%)"
                     for g, v in shares.items()))
@@ -1049,7 +1257,7 @@ def phase_timed_step(card: str) -> dict:
 
 # -- phase 7: card vs CPU ---------------------------------------------------
 
-def phase_train_card_vs_cpu() -> None:
+def phase_train_card_vs_cpu(model: str = "fpn") -> None:
     """One f32 train step (TF32 off) from the same weights, the same batch
     and the same host generator: on the CPU, on the card with cuDNN's
     convolutions, and on the card with PyTorch's own (cuDNN off)."""
@@ -1065,7 +1273,7 @@ def phase_train_card_vs_cpu() -> None:
     )
 
     set_tf32(False)
-    cfg = Config(model="fpn", backbone="resnet18", img_size=TILE,
+    cfg = Config(model=model, backbone="resnet18", img_size=TILE,
                  compute_dtype="float32", lr=1e-4)
     sd = seeded_state_dict(build_model(cfg), seed=9)
     n = 2
@@ -1076,11 +1284,11 @@ def phase_train_card_vs_cpu() -> None:
     for run, dev, cudnn in (("cpu", "cpu", True), ("cudnn", "cuda", True),
                             ("no_cudnn", "cuda", False)):
         with torch.backends.cudnn.flags(enabled=cudnn, allow_tf32=False):
-            model, step = _train_setup(cfg, sd, dev)
+            net, step = _train_setup(cfg, sd, dev)
             loss, _ = step(images.to(dev), masks.to(dev), valid.to(dev),
                            step_generator(1, 0, 0))
             res[run] = (float(loss), {k: p.grad.cpu() for k, p in
-                                      model.named_parameters()})
+                                      net.named_parameters()})
     norms = {k: float(g.norm()) for k, g in res["cpu"][1].items()}
     top = max(norms.values())
 
@@ -1109,14 +1317,16 @@ def phase_train_card_vs_cpu() -> None:
     # cuDNN's heuristics may pick transform-based (Winograd, FFT)
     # algorithms for the f32 data and weight gradients, whose rounding is
     # coarser: 5e-2 of the norm.  The loss within 1e-4 in both.
-    log(f"[card-vs-cpu] one f32 train step, TF32 off, {n}x{TILE}², card "
-        f"without cuDNN: {compare('no_cudnn', 5e-3)}")
-    log(f"[card-vs-cpu] the same, card with cuDNN: {compare('cudnn', 5e-2)}")
+    log(f"[card-vs-cpu] {model}: one f32 train step, TF32 off, {n}x{TILE}²,"
+        f" card without cuDNN: {compare('no_cudnn', 5e-3)}")
+    log(f"[card-vs-cpu] {model}: the same, card with cuDNN: "
+        f"{compare('cudnn', 5e-2)}")
 
 
 # -- phases 7 and 8 ---------------------------------------------------------
 
-def _model(sd: dict, dtype: str, device: str):
+def _model(sd: dict, dtype: str, device: str, model: str = "fpn",
+           head: str = "float32"):
     from pdac_pathological_image_segmentation_tpu_torch import Config
     from pdac_pathological_image_segmentation_tpu_torch.models import (
         build_model,
@@ -1125,36 +1335,41 @@ def _model(sd: dict, dtype: str, device: str):
         make_infer_step,
     )
 
-    model = build_model(Config(model="fpn", backbone="resnet18",
-                               img_size=TILE, compute_dtype=dtype))
-    model.load_state_dict(sd, strict=True)
-    return make_infer_step(model.to(device), TILE)
+    net = build_model(Config.from_dict({
+        "model": model, "backbone": "resnet18", "img_size": TILE,
+        "compute_dtype": dtype, "head_dtype": head}))
+    net.load_state_dict(sd, strict=True)
+    return make_infer_step(net.to(device), TILE)
 
 
-def phase_card_vs_cpu(sd: dict) -> None:
+def phase_card_vs_cpu(sd: dict, model: str = "fpn") -> None:
     set_tf32(False)
     imgs = torch.from_numpy(_tiles(2, seed=4))
-    card = _model(sd, "float32", "cuda")(imgs.cuda()).cpu()
-    cpu = _model(sd, "float32", "cpu")(imgs)
+    card = _model(sd, "float32", "cuda", model)(imgs.cuda()).cpu()
+    cpu = _model(sd, "float32", "cpu", model)(imgs)
     err = float((card - cpu).abs().max())
     if card.shape != (2, TILE, TILE) or not torch.isfinite(card).all() \
             or err > 5e-4:
-        raise AssertionError(f"card vs CPU: shape {tuple(card.shape)}, max "
-                             f"abs err {err} (bound 5e-4)")
-    log(f"[card-vs-cpu] f32, TF32 off, 2x{TILE}²: max |Δp| {err:.3g} "
-        f"(bound 5e-4)")
+        raise AssertionError(f"{model} card vs CPU: shape "
+                             f"{tuple(card.shape)}, max abs err {err} "
+                             "(bound 5e-4)")
+    log(f"[card-vs-cpu] {model} forward, f32, TF32 off, 2x{TILE}²: max |Δp| "
+        f"{err:.3g} (bound 5e-4)")
 
 
-def phase_bf16_vs_f32(sd: dict) -> None:
+def phase_bf16_vs_f32(sd: dict, model: str = "fpn",
+                      head: str = "float32") -> None:
     set_tf32(False)
     imgs = torch.from_numpy(_tiles(8, seed=5)).cuda()
-    p16 = _model(sd, "bfloat16", "cuda")(imgs)
-    p32 = _model(sd, "float32", "cuda")(imgs)
+    p16 = _model(sd, "bfloat16", "cuda", model, head)(imgs)
+    p32 = _model(sd, "float32", "cuda", model)(imgs)
     agree = float(((p16 >= 0.5) == (p32 >= 0.5)).float().mean())
     if agree <= 0.98:
-        raise AssertionError(f"bf16 vs f32 mask agreement {agree} <= 0.98")
-    log(f"[bf16-vs-f32] mask agreement at 0.5: {agree:.6f} (gate > 0.98), "
-        f"max |Δp| {float((p16 - p32).abs().max()):.4f}")
+        raise AssertionError(f"{model} bf16 vs f32 mask agreement {agree} "
+                             "<= 0.98")
+    log(f"[bf16-vs-f32] {model} (bf16 head: {head == 'bfloat16'}): mask "
+        f"agreement at 0.5: {agree:.6f} (gate > 0.98), max |Δp| "
+        f"{float((p16 - p32).abs().max()):.4f}")
 
 
 def main() -> int:
@@ -1174,33 +1389,49 @@ def main() -> int:
     kernels += phase_gn_backward_kernels()
     kernels += phase_augment_kernels()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        sd, serve_by_variant = phase_serving(Path(tmp), card)
-        train = phase_training(Path(tmp))
+        tmp = Path(tmp)
+        sd, serve_by_variant = phase_serving(tmp, card)
+        unet = phase_unet_serving(tmp, card)
+        phase_data(tmp)
+        train = phase_training(tmp, "fpn")
+        train_unet = phase_training(tmp, "unet")
+        evaluation = phase_evaluation(tmp)
     for row in kernels:
-        # launches on the two main paths, by variant and shape: 0 for rows
-        # off them
+        # launches on the main paths, by variant and shape: 0 for rows off
+        # them
         if row["name"] == "fused_train_transform":
             key = (row["shape"][0], TILE)
-            paths = {"train": train["augment"][1].get(key, 0)}
+            paths = {"train": train["augment"][1].get(key, 0),
+                     "train_unet": train_unet["augment"][1].get(key, 0)}
         else:
             key = (row["variant"], *row["shape"], row["dtype"], row["relu"])
             if row["name"] == "group_norm_relu":
                 paths = {"serve": serve_by_variant.get(key, 0),
-                         "train": train["gn_forward"][2].get(key, 0)}
+                         "train": train["gn_forward"][2].get(key, 0),
+                         "eval": evaluation["by_variant"].get(key, 0)}
             else:
                 paths = {"train": train["gn_backward"][2].get(key, 0)}
         row["launches"] = sum(paths.values())
         row["launches_by_path"] = paths
-    # each kernel of the paths ran on them
-    for name in ("fused_train_transform", "group_norm_relu",
-                 "group_norm_relu_backward"):
-        if not sum(r["launches"] for r in kernels if r["name"] == name
+    # each kernel of the paths ran on them, and on each new path
+    for name, path in (("fused_train_transform", "train"),
+                       ("fused_train_transform", "train_unet"),
+                       ("group_norm_relu", "serve"),
+                       ("group_norm_relu", "eval"),
+                       ("group_norm_relu_backward", "train")):
+        if not sum(r["launches_by_path"][path] for r in kernels
+                   if r["name"] == name
                    and r.get("variant", "cluster") == "cluster"):
-            raise AssertionError(f"{name} was not launched on the paths")
-    phase_timed_step(card)
-    phase_train_card_vs_cpu()
-    phase_card_vs_cpu(sd)
-    phase_bf16_vs_f32(sd)
+            raise AssertionError(f"{name} was not launched on the {path} "
+                                 "path")
+    phase_timed_step(card, "fpn")
+    phase_timed_step(card, "unet")
+    phase_train_card_vs_cpu("fpn")
+    phase_train_card_vs_cpu("unet")
+    phase_card_vs_cpu(sd, "fpn")
+    phase_card_vs_cpu(unet["sd"], "unet")
+    phase_bf16_vs_f32(sd, "fpn")
+    phase_bf16_vs_f32(unet["sd"], "unet", head="bfloat16")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

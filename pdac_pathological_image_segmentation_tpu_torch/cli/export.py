@@ -5,8 +5,11 @@
 
 The flags are the JAX package's ``cli/export.py``'s.  ``--pth_path`` is a
 reference-format ``.pth`` (``{"model": state_dict}`` or a bare
-``state_dict``, smp names, ``module.`` prefixes allowed); Orbax
-directories are the JAX package's format and are not read here.  The
+``state_dict``, ``module.`` prefixes allowed): smp names for FPN, the
+reference ResUNet's for unet (its ``encoder.fc.*`` is dropped), or the
+port's own ``latest.pth``/``best.pth``.  ``head_dtype`` (a config extra)
+goes into the artifact.  Orbax directories are the JAX package's format
+and are not read here.  The
 artifact holds the weights, not a compiled program: every batch size and
 the device are chosen at load time.  ``--batch``, ``--platforms`` and
 ``--calib_path`` keep their names so that old command lines parse, and
@@ -25,7 +28,8 @@ def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(description="pathology_project")
     parser.add_argument("--config", type=str, required=True)
     parser.add_argument("--pth_path", required=True,
-                        help="reference .pth file (smp state_dict names)")
+                        help="reference .pth file (smp FPN or reference "
+                        "ResUNet names) or the port's latest/best.pth")
     parser.add_argument("--out", required=True,
                         help="output artifact path (suggest .pdacpt)")
     parser.add_argument("--tile", type=int, default=None,

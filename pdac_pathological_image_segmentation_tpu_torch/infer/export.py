@@ -3,9 +3,10 @@
 Layout: an 8-byte magic (:data:`MAGIC`, distinct from the JAX package's
 ``PDACSRV1``, whose loader therefore refuses this file as "bad magic"), a
 u32 little-endian length, JSON metadata (tile, model, backbone, stain,
-int8, compute_dtype, num_classes), then ``torch.save`` of the model's
-``state_dict``.  Loading rebuilds the model from the metadata on the
-requested device.
+int8, compute_dtype, head_dtype, num_classes), then ``torch.save`` of the
+model's ``state_dict``.  Loading rebuilds the model from the metadata on
+the requested device; an artifact without ``head_dtype`` loads with a
+float32 head.
 """
 
 from __future__ import annotations
@@ -20,6 +21,9 @@ import torch
 
 from pdac_pathological_image_segmentation_tpu_torch import resolve_device
 from pdac_pathological_image_segmentation_tpu_torch.config import Config
+from pdac_pathological_image_segmentation_tpu_torch.utils.torch_weights import (
+    drop_unbuilt_keys,
+)
 
 MAGIC = b"PDACPT01"
 _INT8 = "int8 serving is not ported yet (ROADMAP.md Queue 1, item 4: int8)"
@@ -28,10 +32,11 @@ _INT8 = "int8 serving is not ported yet (ROADMAP.md Queue 1, item 4: int8)"
 def export_serving_artifact(cfg: Config, state_dict: Mapping[str, torch.Tensor],
                             out_path: str, *, tile: Optional[int] = None,
                             int8: bool = False) -> int:
-    """Write ``state_dict`` (the port model's, smp names) for ``cfg`` to
-    ``out_path``; returns the artifact size in bytes.  The model is built
-    and loaded strictly first, so a file that would not load is never
-    written."""
+    """Write ``state_dict`` (the port model's names; keys of parameters the
+    model does not build, such as a reference ResUNet's ``encoder.fc``, are
+    dropped) for ``cfg`` to ``out_path``; returns the artifact size in
+    bytes.  The model is built and loaded strictly first, so a file that
+    would not load is never written."""
     if int8:
         raise NotImplementedError(_INT8)
     if cfg.stain != "none":
@@ -43,7 +48,9 @@ def export_serving_artifact(cfg: Config, state_dict: Mapping[str, torch.Tensor],
     )
 
     tile = int(tile or cfg.img_size)
-    build_model(cfg).load_state_dict(state_dict, strict=True)
+    model = build_model(cfg)
+    state_dict = drop_unbuilt_keys(model, state_dict)
+    model.load_state_dict(state_dict, strict=True)
     meta = json.dumps({
         "tile": tile,
         "model": cfg.model,
@@ -51,6 +58,7 @@ def export_serving_artifact(cfg: Config, state_dict: Mapping[str, torch.Tensor],
         "stain": cfg.stain,
         "int8": False,
         "compute_dtype": cfg.compute_dtype,
+        "head_dtype": str(cfg.extras.get("head_dtype", "float32")).lower(),
         "num_classes": int(cfg.num_classes),
     }).encode()
     buf = io.BytesIO()
@@ -142,7 +150,10 @@ def load_serving_artifact(path: str, device="cuda") -> ServingArtifact:
     cfg = Config(model=meta["model"], backbone=meta["backbone"],
                  img_size=int(meta["tile"]), stain=meta["stain"],
                  compute_dtype=meta["compute_dtype"],
-                 num_classes=int(meta.get("num_classes", 1)))
+                 num_classes=int(meta.get("num_classes", 1)),
+                 # artifacts written before the field existed have an f32
+                 # head
+                 extras={"head_dtype": meta.get("head_dtype", "float32")})
     model = build_model(cfg)
     model.load_state_dict(state_dict, strict=True)
     return ServingArtifact(model.to(dev), meta, dev)

@@ -172,18 +172,35 @@ def normalize(img: torch.Tensor, dtype: torch.dtype = torch.float32
     return (img - mean.view(1, 3, 1, 1)) * inv_std.view(1, 3, 1, 1)
 
 
+def denormalize(img: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`normalize`, clipped to [0, 1], on NCHW images
+    (reference ``test.py:128-131``)."""
+    mean = torch.from_numpy(_MEAN).to(img.device, img.dtype).view(1, 3, 1, 1)
+    std = torch.from_numpy(_STD).to(img.device, img.dtype).view(1, 3, 1, 1)
+    return (img * std + mean).clamp(0.0, 1.0)
+
+
+def eval_images(images: torch.Tensor, img_size: int,
+                dtype: torch.dtype = torch.float32, stain: str = "none"
+                ) -> torch.Tensor:
+    """The image half of :func:`eval_transform`: (N,H,W,3) uint8 → ``dtype``
+    (N,3,S,S) normalized images (bilinear f32 resize where the size
+    differs)."""
+    check_supported(stain=stain)
+    x = images.permute(0, 3, 1, 2)
+    if tuple(x.shape[-2:]) != (img_size, img_size):
+        x = resize_bilinear(x.float(), img_size, img_size)
+    return normalize(x, dtype).contiguous()
+
+
 def eval_transform(images: torch.Tensor, masks: torch.Tensor, img_size: int,
                    dtype: torch.dtype = torch.float32, stain: str = "none"):
     """The reference's val/test pipeline: resize → normalize.  ``images``
     (N,H,W,3) uint8 and ``masks`` (N,H,W) → ``dtype`` (N,3,S,S) normalized
     images and float32 (N,S,S) masks (bilinear f32 resize for images,
     nearest for masks, only where the size differs)."""
-    check_supported(stain=stain)
-    x = images.permute(0, 3, 1, 2)
-    if tuple(x.shape[-2:]) != (img_size, img_size):
-        x = resize_bilinear(x.float(), img_size, img_size)
-    masks = resize_nearest(masks, img_size, img_size).float()
-    return normalize(x, dtype).contiguous(), masks
+    x = eval_images(images, img_size, dtype, stain)
+    return x, resize_nearest(masks, img_size, img_size).float()
 
 
 def apply_slot_jitter(imgs: torch.Tensor, a_mats: torch.Tensor,

@@ -20,6 +20,14 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
+from pdac_pathological_image_segmentation_tpu_torch.train.state import (
+    BN_BUFFERS,
+    parameter_names,
+)
+from pdac_pathological_image_segmentation_tpu_torch.utils.torch_weights import (
+    drop_unbuilt_keys,
+)
+
 LATEST = "latest.pth"
 BEST = "best.pth"
 _PREFIX = "module."
@@ -70,17 +78,45 @@ def save_checkpoint(pth_dir: str, model: nn.Module,
         os.replace(tmp, os.path.join(pth_dir, BEST))
 
 
+def _adam_state_by_name(ckpt: dict, model: nn.Module,
+                        optimizer: torch.optim.Optimizer) -> dict:
+    """``optimizer``'s state_dict with the checkpoint's moments.  Torch
+    indexes them by position in the checkpoint's own parameter list (its
+    ``model`` keys without BN buffers), which holds parameters the port
+    does not build (a reference ResUNet's ``encoder.fc``): each moment goes
+    position → name → the port's position.  The port's own
+    ``param_groups`` (and learning rate) are kept."""
+    ckpt_names = [k.removeprefix(_PREFIX) for k in ckpt["model"]
+                  if not k.endswith(BN_BUFFERS)]
+    params = dict(model.named_parameters())
+    ours = {k: i for i, k in enumerate(parameter_names(model))}
+    state = {}
+    for idx, entry in (ckpt.get("optimizer") or {}).get("state", {}).items():
+        name = ckpt_names[int(idx)]
+        if name not in ours:  # dropped with the weights it belongs to
+            continue
+        if entry["exp_avg"].shape != params[name].shape:
+            raise ValueError(f"Adam moment of {name}: shape "
+                             f"{tuple(entry['exp_avg'].shape)}, parameter "
+                             f"{tuple(params[name].shape)}")
+        state[ours[name]] = entry
+    return {"state": state,
+            "param_groups": optimizer.state_dict()["param_groups"]}
+
+
 def restore_checkpoint(pth_dir: str, model: nn.Module,
                        optimizer: torch.optim.Optimizer,
                        name: str = LATEST) -> Optional[dict]:
-    """Load ``pth_dir/name`` into ``model`` and ``optimizer`` (onto their
-    devices) and return its other keys, or ``None`` when there is none."""
+    """Load ``pth_dir/name`` (the port's or the reference's) into ``model``
+    and ``optimizer`` (onto their devices) and return its other keys, or
+    ``None`` when there is none.  Keys of parameters the model does not
+    build are dropped; the rest loads strictly."""
     path = os.path.join(pth_dir, name)
     if not os.path.isfile(path):
         return None
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    model.load_state_dict(
-        {k.removeprefix(_PREFIX): v for k, v in ckpt["model"].items()},
+    model.load_state_dict(drop_unbuilt_keys(
+        model, {k.removeprefix(_PREFIX): v for k, v in ckpt["model"].items()}),
         strict=True)
-    optimizer.load_state_dict(ckpt["optimizer"])
+    optimizer.load_state_dict(_adam_state_by_name(ckpt, model, optimizer))
     return {k: v for k, v in ckpt.items() if k not in ("model", "optimizer")}

@@ -13,13 +13,13 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-_BUFFERS = ("running_mean", "running_var", "num_batches_tracked")
+BN_BUFFERS = ("running_mean", "running_var", "num_batches_tracked")
 
 
 def parameter_names(model: nn.Module) -> list:
     """The ``state_dict`` names of ``model``'s parameters, in the order
     the optimizer indexes them."""
-    return [k for k in model.state_dict() if not k.endswith(_BUFFERS)]
+    return [k for k in model.state_dict() if not k.endswith(BN_BUFFERS)]
 
 
 def make_optimizer(model: nn.Module, lr: float) -> torch.optim.Adam:

@@ -22,6 +22,7 @@ from pdac_pathological_image_segmentation_tpu_torch.config import (
 from pdac_pathological_image_segmentation_tpu_torch.ops.augment import (
     check_supported,
     draw_augment_scalars,
+    eval_images,
     eval_transform,
     make_augment_tables,
 )
@@ -71,7 +72,8 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     BatchNorm's batch statistics but not the loss or the score.  The
     augmentation is the fused kernel on bf16 (the JAX package's default
     where the kernel applies); ``augment=False`` takes ``eval_transform``
-    in the model's compute dtype.  The score is taken on the pre-update
+    in float32, as the JAX step does, and the model rounds it once to its
+    compute dtype at its input.  The score is taken on the pre-update
     forward (``steps.py:92-94`` of the JAX package)."""
     if remat:
         raise NotImplementedError(_NOT_PORTED["remat"])
@@ -80,7 +82,6 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     if augment and not fused_augment:
         raise NotImplementedError(_NOT_PORTED["fused_augment"])
     check_supported(parity_mode, stain)
-    dtype = getattr(model, "compute_dtype", torch.float32)
 
     def step(images, masks, valid, generator: torch.Generator):
         model.train()
@@ -94,7 +95,7 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
             tables = make_augment_tables(facs, ints).to(images.device)
             imgs, msks = fused_train_transform(images, masks, tables)
         else:
-            imgs, msks = eval_transform(images, masks, img_size, dtype)
+            imgs, msks = eval_transform(images, masks, img_size)
         out = model(imgs, generator)
         loss = objective.loss_fn(out, msks, valid)
         optimizer.zero_grad(set_to_none=True)
@@ -148,7 +149,9 @@ def make_infer_step(model: nn.Module, img_size: int, stain: str = "none"):
     ``images_u8`` is a uint8 ``(N, H, W, 3)`` tensor on the model's device.
     Tiles of another size are resized to ``img_size`` (float32 bilinear,
     half-pixel centres).  Binary models return float32 ``(N, H, W)`` sigmoid
-    probabilities; multi-class models ``(N, H, W, C)`` softmax ones."""
+    probabilities; multi-class models ``(N, H, W, C)`` softmax ones.  A
+    model with a bfloat16 head (``head_dtype``) gives bf16 logits, whose
+    sigmoid is taken in float32 here (the JAX step takes it in bf16)."""
     if stain != "none":
         raise NotImplementedError(
             f"stain={stain!r} is not ported yet (ROADMAP.md Queue 1, item 4)")
@@ -174,5 +177,20 @@ def make_infer_step(model: nn.Module, img_size: int, stain: str = "none"):
         if getattr(model, "num_classes", 1) > 1:
             return torch.softmax(out.float(), dim=1).permute(0, 2, 3, 1)
         return torch.sigmoid(out[:, 0].float())
+
+    return step
+
+
+def make_predict_step(model: nn.Module, img_size: int, objective: Objective,
+                      stain: str = "none"):
+    """``step(images_u8) → hard labels (N, S, S)`` in eval mode, from the
+    objective's ``predict_fn`` (the JAX ``make_predict_step``)."""
+    dtype = getattr(model, "compute_dtype", torch.float32)
+
+    @torch.inference_mode()
+    def step(images: torch.Tensor) -> torch.Tensor:
+        model.eval()
+        return objective.predict_fn(
+            model(eval_images(images, img_size, dtype, stain)))
 
     return step

@@ -1,14 +1,30 @@
-"""Early stopping (the JAX package's ``utils/meters.py``).
+"""Meters and early stopping (the JAX package's ``utils/meters.py``).
 
-Reference semantics (``util.py:29-47``): an epoch counts as no improvement
-when ``val_score < best + delta``; ``patience`` such epochs in a row set
-``early_stop``.  ``delta`` raises the bar: a score must beat the best by
-at least ``delta`` to reset the count (the reference uses 0.02).
+Early stop, reference semantics (``util.py:29-47``): an epoch counts as no
+improvement when ``val_score < best + delta``; ``patience`` such epochs in
+a row set ``early_stop``.  ``delta`` raises the bar: a score must beat the
+best by at least ``delta`` to reset the count (the reference uses 0.02).
 """
 
 from __future__ import annotations
 
 from typing import Optional
+
+
+class AverageMeter:
+    """Running value/sum/count/average (reference ``util.py:50-64``)."""
+
+    def __init__(self) -> None:
+        self.val = 0.0
+        self.avg = 0.0
+        self.sum = 0.0
+        self.count = 0
+
+    def update(self, val: float, n: int = 1) -> None:
+        self.val = float(val)
+        self.sum += self.val * n
+        self.count += n
+        self.avg = self.sum / self.count
 
 
 class EarlyStop:

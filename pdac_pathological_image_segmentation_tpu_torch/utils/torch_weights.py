@@ -1,10 +1,12 @@
-"""Weights carried across: reference checkpoints in, JAX FPN trees out.
+"""Weights carried across: reference checkpoints in, JAX model trees out.
 
-The port's modules keep torchvision/smp ``state_dict`` names, so a
-reference ``.pth`` loads with ``load_state_dict(strict=True)``.
-:func:`fpn_state_dict_from_jax` is the inverse of the JAX package's
-``convert_smp_fpn_state_dict``: it turns that package's FPN parameter
-trees (as numpy arrays) into the port's ``state_dict``.
+The port's modules keep torchvision/smp/reference ``state_dict`` names, so
+a reference ``.pth`` loads with ``load_state_dict(strict=True)`` once
+:func:`drop_unbuilt_keys` has removed what the port does not build.
+:func:`fpn_state_dict_from_jax` and :func:`resunet_state_dict_from_jax`
+are the inverses of the JAX package's ``convert_smp_fpn_state_dict`` and
+``convert_resunet_state_dict``: they turn that package's parameter trees
+(as numpy arrays) into the port's ``state_dict``.
 """
 
 from __future__ import annotations
@@ -120,3 +122,33 @@ def fpn_state_dict_from_jax(params: Mapping[str, Any],
             _norm_affine(sd, f"{pre}.1", node["GroupNorm_0"])
     _conv(sd, "segmentation_head.0", params["head"], bias=True)
     return sd
+
+
+def resunet_state_dict_from_jax(params: Mapping[str, Any],
+                                batch_stats: Mapping[str, Any]
+                                ) -> Dict[str, torch.Tensor]:
+    """The JAX ResUNet's ``params``/``batch_stats`` (numpy leaves) → the
+    port ResUNet's ``state_dict`` (the reference's names), the inverse of
+    the JAX ``convert_resunet_state_dict``.  flax keeps a transposed conv's
+    taps spatially flipped in (kH, kW, in, out); torch wants them unflipped
+    in (in, out, kH, kW)."""
+    sd = resnet_state_dict_from_jax(params["encoder"],
+                                    batch_stats["encoder"], "encoder.")
+    for name in ("upconv1", "upconv2", "upconv3"):
+        k = np.asarray(params[name]["kernel"])
+        sd[f"{name}.weight"] = torch.from_numpy(np.ascontiguousarray(
+            k[::-1, ::-1].transpose(2, 3, 0, 1)))
+        sd[f"{name}.bias"] = torch.from_numpy(np.array(params[name]["bias"]))
+    for name in ("conv1", "conv2", "conv3", "conv4"):
+        _conv(sd, name, params[name], bias=True)
+    return sd
+
+
+def drop_unbuilt_keys(model: torch.nn.Module,
+                      sd: Mapping[str, torch.Tensor]
+                      ) -> Dict[str, torch.Tensor]:
+    """``sd`` without the keys of reference parameters that ``model`` does
+    not build (its class's ``unbuilt_keys`` prefixes; ResUNet's
+    ``encoder.fc.*``), so that the rest loads with ``strict=True``."""
+    unbuilt = tuple(getattr(model, "unbuilt_keys", ()))
+    return {k: v for k, v in sd.items() if not k.startswith(unbuilt)}

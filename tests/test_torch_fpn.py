@@ -155,8 +155,7 @@ def test_resize_nearest_matches_jax(out):
         resize_nearest(torch.from_numpy(m), *out).numpy(), ref)
 
 
-@pytest.mark.parametrize("model_name", ["unet", "deeplabv3+", "pspnet",
-                                        "unet++"])
+@pytest.mark.parametrize("model_name", ["deeplabv3+", "pspnet", "unet++"])
 def test_unported_models_name_the_roadmap(model_name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(Config(model=model_name, img_size=SIZE))

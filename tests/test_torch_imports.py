@@ -55,7 +55,8 @@ def test_port_modules_import_without_jax():
         "cli.export", "cli.serve", "ops.augment", "ops.fused_augment",
         "ops.dice", "train.objective", "train.state", "train.schedule",
         "train.checkpoint", "train.loop", "utils.meters", "data.discovery",
-        "data.loader", "cli.train")}
+        "data.loader", "cli.train", "models.resunet", "ops.metrics",
+        "infer.figures", "infer.evaluate", "cli.test")}
     assert expected <= set(out["imported"])
     assert [m for m in out["modules"] if _forbidden(m)] == []
 
@@ -104,6 +105,24 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(tmp_path):
     assert load_serving_artifact(path, device="cpu").device.type == "cpu"
     with pytest.raises(ValueError, match="unsupported device"):
         resolve_device("meta")
+    # evaluation: the Evaluator and cli.test
+    from pdac_pathological_image_segmentation_tpu_torch.cli import test
+    from pdac_pathological_image_segmentation_tpu_torch.infer.evaluate import (
+        Evaluator,
+    )
+
+    pth = tmp_path / "pth"
+    pth.mkdir()
+    torch.save({"model": build_model(cfg).state_dict()}, pth / "best.pth")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Evaluator(cfg, str(pth))
+    assert Evaluator(cfg, str(pth), device="cpu").device.type == "cpu"
+    cfg_path = tmp_path / "cfg.yaml"
+    cfg_path.write_text(f"model: fpn\nimg_size: 64\ntest_path: {pth}\n")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        test.main(["--config", str(cfg_path), "--save_path",
+                   str(tmp_path / "out"), "--pth_path", str(pth)])
+    assert not (tmp_path / "out").exists()
 
 
 def test_cuda_tensor_without_kernel_raises_not_falls_back():

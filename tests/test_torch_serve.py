@@ -46,6 +46,7 @@ from pdac_pathological_image_segmentation_tpu_torch.infer.export import (
     MAGIC,
     export_serving_artifact,
     load_serving_artifact,
+    read_artifact,
 )
 from pdac_pathological_image_segmentation_tpu_torch.infer.server import (
     MicroBatcher,
@@ -53,6 +54,9 @@ from pdac_pathological_image_segmentation_tpu_torch.infer.server import (
     _decode_body,
 )
 from pdac_pathological_image_segmentation_tpu_torch.models import build_model
+from pdac_pathological_image_segmentation_tpu_torch.train.steps import (
+    make_infer_step,
+)
 from pdac_pathological_image_segmentation_tpu_torch.utils.torch_weights import (
     seeded_state_dict,
 )
@@ -346,3 +350,56 @@ def test_port_server_matches_jax_server(weights, server, tmp_path):
     finally:
         jsrv.shutdown()
     np.testing.assert_allclose(ours, ref, rtol=0, atol=5e-4)
+
+
+def _unet(weights, head_dtype):
+    model = build_model(Config.from_dict({
+        "model": "unet", "img_size": TILE, "compute_dtype": "bfloat16",
+        "head_dtype": head_dtype}))
+    model.load_state_dict(weights, strict=True)
+    return model
+
+
+@pytest.fixture(scope="module")
+def unet_weights():
+    return seeded_state_dict(build_model(Config(model="unet", img_size=TILE)),
+                             seed=12)
+
+
+def test_unet_artifact_keeps_head_dtype(unet_weights, tmp_path):
+    """Export → load → call: the metadata carries ``head_dtype`` and the
+    served model is rebuilt with it; an artifact written without the field
+    (before it existed) loads with an f32 head."""
+    cfg_path = tmp_path / "cfg.yaml"
+    cfg_path.write_text(yaml.safe_dump({
+        "model": "unet", "img_size": TILE, "compute_dtype": "bfloat16",
+        "head_dtype": "bfloat16"}))
+    pth = tmp_path / "best.pth"
+    torch.save({"model": {f"module.{k}": v for k, v in unet_weights.items()}},
+               pth)
+    out = tmp_path / "unet.pdacpt"
+    cli_export.main(["--config", str(cfg_path), "--pth_path", str(pth),
+                     "--out", str(out)])
+    art = load_serving_artifact(str(out), device="cpu")
+    assert art.meta["head_dtype"] == "bfloat16"
+    tiles = np.random.default_rng(4).integers(0, 256, (2, TILE, TILE, 3),
+                                              dtype=np.uint8)
+    probs = art(tiles)
+    direct = make_infer_step(_unet(unet_weights, "bfloat16"), TILE)(
+        torch.from_numpy(tiles)).numpy()
+    assert probs.dtype == np.float32 and probs.shape == (2, TILE, TILE)
+    np.testing.assert_array_equal(probs, direct)
+
+    meta, sd = read_artifact(str(out))
+    del meta["head_dtype"]
+    blob = json.dumps(meta).encode()
+    buf = io.BytesIO()
+    torch.save(sd, buf)
+    old = tmp_path / "old.pdacpt"
+    old.write_bytes(MAGIC + len(blob).to_bytes(4, "little") + blob
+                    + buf.getvalue())
+    old_art = load_serving_artifact(str(old), device="cpu")
+    f32_head = make_infer_step(_unet(unet_weights, "float32"), TILE)(
+        torch.from_numpy(tiles)).numpy()
+    np.testing.assert_array_equal(old_art(tiles), f32_head)
+    assert not np.array_equal(f32_head, probs)  # the head dtype did matter

@@ -39,6 +39,9 @@ from pdac_pathological_image_segmentation_tpu.data.loader import (
 from pdac_pathological_image_segmentation_tpu.data.synthetic import (
     generate_synthetic_patches,
 )
+from pdac_pathological_image_segmentation_tpu.models import (
+    build_model as jax_build_model,
+)
 from pdac_pathological_image_segmentation_tpu.models.fpn import FPN as JaxFPN
 from pdac_pathological_image_segmentation_tpu.ops.augment import (
     eval_transform as jax_eval_transform,
@@ -64,6 +67,7 @@ from pdac_pathological_image_segmentation_tpu.utils.torch_weights import (
 )
 from pdac_pathological_image_segmentation_tpu_torch import Config
 from pdac_pathological_image_segmentation_tpu_torch.cli import (
+    export as cli_export,
     train as cli_train,
 )
 from pdac_pathological_image_segmentation_tpu_torch.data.discovery import (
@@ -72,6 +76,9 @@ from pdac_pathological_image_segmentation_tpu_torch.data.discovery import (
 from pdac_pathological_image_segmentation_tpu_torch.data.loader import (
     PatchDataset,
     PatchLoader,
+)
+from pdac_pathological_image_segmentation_tpu_torch.infer.export import (
+    read_artifact,
 )
 from pdac_pathological_image_segmentation_tpu_torch.models import build_model
 from pdac_pathological_image_segmentation_tpu_torch.models.fpn import (
@@ -106,6 +113,7 @@ from pdac_pathological_image_segmentation_tpu_torch.utils.meters import (
 from pdac_pathological_image_segmentation_tpu_torch.utils.torch_weights import (
     fpn_state_dict_from_jax,
     load_reference_state_dict,
+    resunet_state_dict_from_jax,
     seeded_state_dict,
 )
 
@@ -118,10 +126,14 @@ def _np_tree(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
-def _to_torch_names(tree, batch_stats):
-    """A JAX FPN parameter-shaped tree (params, gradients, Adam moments)
-    in the port's names and layouts."""
-    sd = fpn_state_dict_from_jax(_np_tree(tree), _np_tree(batch_stats))
+_FROM_JAX = {"fpn": fpn_state_dict_from_jax,
+             "unet": resunet_state_dict_from_jax}
+
+
+def _to_torch_names(tree, batch_stats, model_name="fpn"):
+    """A JAX parameter-shaped tree (params, gradients, Adam moments) in the
+    port's names and layouts."""
+    sd = _FROM_JAX[model_name](_np_tree(tree), _np_tree(batch_stats))
     return {k: v for k, v in sd.items() if not k.endswith(BN_RUNNING)}
 
 
@@ -410,23 +422,32 @@ def test_loader_batches_match_jax_loader(data_root, shuffle):
 
 # -- the trainer -------------------------------------------------------------
 
-def _write_cfg(path, data_root, epochs):
+def _write_cfg(path, data_root, epochs, model="fpn"):
     path.write_text(yaml.safe_dump({
         "train_path": str(data_root / "train"),
         "val_path": str(data_root / "val"),
-        "model": "fpn", "backbone": "resnet18", "img_size": SIZE,
+        "model": model, "backbone": "resnet18", "img_size": SIZE,
         "batch_size": 4, "epochs": epochs, "lr": LR, "seed": 41,
         "num_worker": 2, "compute_dtype": "bfloat16"}))
 
 
-@pytest.fixture(scope="module")
-def trained(data_root, tmp_path_factory):
-    run = tmp_path_factory.mktemp("run")
+def _train_two_epochs(data_root, run, model="fpn"):
     cfg_path = run / "cfg.yaml"
-    _write_cfg(cfg_path, data_root, epochs=2)
+    _write_cfg(cfg_path, data_root, epochs=2, model=model)
     result = cli_train.main(["--config", str(cfg_path), "--save_path",
                              str(run / "out"), "--device", "cpu"])
     return run, cfg_path, result
+
+
+@pytest.fixture(scope="module")
+def trained(data_root, tmp_path_factory):
+    return _train_two_epochs(data_root, tmp_path_factory.mktemp("run"))
+
+
+@pytest.fixture(scope="module")
+def trained_unet(data_root, tmp_path_factory):
+    return _train_two_epochs(data_root, tmp_path_factory.mktemp("unet"),
+                             model="unet")
 
 
 def test_cli_train_two_epochs_writes_tags_and_checkpoints(trained):
@@ -446,34 +467,32 @@ def test_cli_train_two_epochs_writes_tags_and_checkpoints(trained):
         str(run / "out" / "pth" / "best.pth")), strict=True)
 
 
-def test_latest_pth_loads_into_the_jax_package(trained):
-    """The port's ``latest.pth`` through the JAX package's
-    ``load_reference_checkpoint_full``: parameters, BN statistics and Adam
-    moments arrive equal, bit for bit."""
-    run, _, _ = trained
-    path = run / "out" / "pth" / "latest.pth"
+def _assert_latest_pth_loads_into_the_jax_package(path, model_name):
+    """``path`` through the JAX package's ``load_reference_checkpoint_full``:
+    parameters, BN statistics and Adam moments arrive equal, bit for
+    bit."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     assert {"model", "optimizer", "epoch", "previous_best"} <= set(ckpt)
     assert ckpt["epoch"] == 1
-    jcfg = JaxConfig(model="fpn", img_size=SIZE, compute_dtype="float32")
-    template = create_train_state(jcfg, JaxFPN(output_size=SIZE),
+    jcfg = JaxConfig(model=model_name, img_size=SIZE, compute_dtype="float32")
+    template = create_train_state(jcfg, jax_build_model(jcfg),
                                   jax.random.PRNGKey(0))
     state, meta = load_reference_checkpoint_full(str(path), template,
-                                                 model_name="fpn")
+                                                 model_name=model_name)
     assert meta["epoch"] == 1
-    back = fpn_state_dict_from_jax(_np_tree(state.params),
-                                   _np_tree(state.batch_stats))
+    back = _FROM_JAX[model_name](_np_tree(state.params),
+                                 _np_tree(state.batch_stats))
     model_sd = {k.removeprefix("module."): v for k, v in ckpt["model"].items()}
+    assert sorted(back) == sorted(model_sd)
     for k, v in back.items():
         if not k.endswith("num_batches_tracked"):
             assert torch.equal(v, model_sd[k]), k
     adam = next(n for n in jax.tree_util.tree_leaves(
         state.opt_state, is_leaf=lambda n: hasattr(n, "mu"))
         if hasattr(n, "mu"))
-    mu = _to_torch_names(adam.mu, state.batch_stats)
-    nu = _to_torch_names(adam.nu, state.batch_stats)
-    names = [k.removeprefix("module.") for k in ckpt["model"]
-             if not k.endswith(BN_RUNNING)]
+    mu = _to_torch_names(adam.mu, state.batch_stats, model_name)
+    nu = _to_torch_names(adam.nu, state.batch_stats, model_name)
+    names = [k for k in model_sd if not k.endswith(BN_RUNNING)]
     for idx, name in enumerate(names):
         entry = ckpt["optimizer"]["state"][idx]
         assert torch.equal(mu[name], entry["exp_avg"]), name
@@ -481,13 +500,43 @@ def test_latest_pth_loads_into_the_jax_package(trained):
     assert int(adam.count) == int(ckpt["optimizer"]["state"][0]["step"])
 
 
-def test_cli_train_resumes(trained, data_root, tmp_path, capsys):
-    """A rerun with ``epochs: 3`` on a copy of the first run's output
-    resumes after epoch 2 (index 1) and trains one more epoch."""
+def test_latest_pth_loads_into_the_jax_package(trained):
+    """The port's FPN ``latest.pth`` in the JAX package."""
+    run, _, _ = trained
+    _assert_latest_pth_loads_into_the_jax_package(
+        run / "out" / "pth" / "latest.pth", "fpn")
+
+
+def test_unet_latest_pth_loads_into_the_jax_package(trained_unet):
+    """The port's unet ``latest.pth`` in the JAX package (the ResUNet
+    converter, transposed-conv taps flipped)."""
+    run, _, _ = trained_unet
+    _assert_latest_pth_loads_into_the_jax_package(
+        run / "out" / "pth" / "latest.pth", "unet")
+
+
+def test_cli_export_reads_the_ports_unet_checkpoint(trained_unet, tmp_path):
+    """``cli.export`` takes the port's own unet ``best.pth`` (optimizer,
+    scheduler and early-stop keys beside the weights); the artifact holds
+    exactly the trained weights."""
+    run, cfg_path, _ = trained_unet
+    out = tmp_path / "unet.pdacpt"
+    cli_export.main(["--config", str(cfg_path), "--pth_path",
+                     str(run / "out" / "pth" / "best.pth"), "--out",
+                     str(out)])
+    meta, sd = read_artifact(str(out))
+    assert meta["model"] == "unet" and meta["head_dtype"] == "float32"
+    want = load_reference_state_dict(str(run / "out" / "pth" / "best.pth"))
+    assert sorted(sd) == sorted(want)
+    assert all(torch.equal(sd[k], want[k]) for k in want)
+
+
+def _assert_resumes(trained, data_root, tmp_path, capsys, model="fpn"):
     run, _, _ = trained
     shutil.copytree(run / "out", tmp_path / "out")
     cfg_path = tmp_path / "cfg.yaml"
-    _write_cfg(cfg_path, data_root, epochs=3)
+    _write_cfg(cfg_path, data_root, epochs=3, model=model)
+    capsys.readouterr()
     result = cli_train.main(["--config", str(cfg_path), "--save_path",
                              str(tmp_path / "out"), "--device", "cpu"])
     assert "resumed from epoch 1" in capsys.readouterr().out
@@ -497,6 +546,23 @@ def test_cli_train_resumes(trained, data_root, tmp_path, capsys):
     ckpt = torch.load(tmp_path / "out" / "pth" / "latest.pth",
                       weights_only=True)
     assert ckpt["epoch"] == 2
+
+
+def test_cli_train_resumes(trained, data_root, tmp_path, capsys):
+    """A rerun with ``epochs: 3`` on a copy of the first run's output
+    resumes after epoch 2 (index 1) and trains one more epoch."""
+    _assert_resumes(trained, data_root, tmp_path, capsys)
+
+
+def test_cli_train_unet_two_epochs_then_resumes(trained_unet, data_root,
+                                                tmp_path, capsys):
+    """``model: unet`` through ``cli.train``: two finite epochs, then the
+    resume (the trainer has nothing FPN-specific)."""
+    _, _, result = trained_unet
+    assert [h["epoch"] for h in result["history"]] == [0, 1]
+    assert all(math.isfinite(h["train_loss"]) and math.isfinite(h["val_loss"])
+               for h in result["history"])
+    _assert_resumes(trained_unet, data_root, tmp_path, capsys, model="unet")
 
 
 def test_checkpoint_round_trip_restores_model_and_adam(tmp_path):
@@ -539,16 +605,24 @@ def test_unported_trainer_options_name_the_roadmap(knob, data_root, tmp_path):
 
 def test_trainer_initial_weights_follow_the_seed(data_root, tmp_path):
     """Two trainers with one seed start from the same weights, another
-    seed from others, and the caller's global RNG is left as it was."""
-    def first_weight(seed):
-        cfg = Config(model="fpn", img_size=SIZE, compute_dtype="float32",
+    seed from others, and the caller's global RNG is left as it was; for
+    FPN and for ResUNet (whose decoder's first weight is checked too)."""
+    def first_weights(seed, model):
+        cfg = Config(model=model, img_size=SIZE, compute_dtype="float32",
                      batch_size=4, seed=seed)
         ds = PatchDataset(*discover_split(str(data_root / "train")), cfg)
-        trainer = Trainer(cfg, str(tmp_path / str(seed)), ds, ds,
+        trainer = Trainer(cfg, str(tmp_path / f"{model}{seed}"), ds, ds,
                           device="cpu")
-        return trainer.model.encoder.conv1.weight.detach().clone()
+        names = ["encoder.conv1.weight", next(
+            k for k, _ in trainer.model.named_parameters()
+            if not k.startswith("encoder."))]
+        params = dict(trainer.model.named_parameters())
+        return [params[k].detach().clone() for k in names]
 
     state = torch.random.get_rng_state()
-    a, b, c = first_weight(41), first_weight(41), first_weight(42)
-    assert torch.equal(a, b) and not torch.equal(a, c)
+    for model in ("fpn", "unet"):
+        a, b, c = (first_weights(41, model), first_weights(41, model),
+                   first_weights(42, model))
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+        assert not any(torch.equal(x, z) for x, z in zip(a, c))
     assert torch.equal(torch.random.get_rng_state(), state)
