@@ -68,7 +68,21 @@ Phases, each of which fails the run (exit code 1) on any error:
 7. card vs CPU, both models: one f32 train step (TF32 off) and the f32
    forward;
 8. bf16 vs f32 on the card: mask agreement at 0.5 (ResUNet with its bf16
-   head).
+   head);
+9. whole-slide inference, last, a main path per run: ``cli.overlay --device
+   cuda`` with the FPN ``best.pth`` of phase 5 on the config (bf16, batch
+   128) over an 8192² JPEG TIFF written by PIL (GeoJSON, TIFF export,
+   region cleaning), a deflate pyramidal tiled TIFF written by the port's
+   writer (banded, stride 256, hann, TTA, uncertainty), an exported
+   artifact, and a PyHIST directory; every output read back, the tumor
+   fraction against the saved map or polygons, and the GN forward
+   launches 7 x the tile batches (x 8 with TTA), per shape, all cluster.
+   Then the JAX rounds' 40,960² slide (25,281 windows at stride 256,
+   hann) through ``BandedSlidingWindow`` with band input: wall seconds,
+   windows/s, the device's busy share (profiler), peak memory, band
+   uploads, GN launches.  Then card vs CPU in f32 on a 1024² slide with
+   and without TTA (probabilities within 5e-4, masks 99.9% equal) and
+   the banded runner against the plain one within float16 rounding.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -1162,6 +1176,411 @@ def phase_evaluation(tmp: Path) -> dict:
     return {"by_variant": by_variant}
 
 
+# -- phase 9: whole-slide inference ------------------------------------------
+
+WSI_SIDE = 8192  # the CLI's slides
+# BASELINE.md:175 (bench.py --mode wsi --size 40960): the "~40k x 40k @ 20x"
+# slide, 25,281 windows at stride 256
+WSI_TIMED_SIDE = 40_960
+WSI_STRIDE = 256
+WSI_CPU_SIDE = 1024  # card vs CPU
+
+
+def _gn_forward_counts(reset: bool = False) -> tuple:
+    """The GN forward's counters ``(launches, by shape, by variant)``; with
+    ``reset`` they are set to 0 first."""
+    from pdac_pathological_image_segmentation_tpu_torch.ops.group_norm import (
+        group_norm_relu,
+    )
+
+    if reset:
+        group_norm_relu.launches = 0
+        group_norm_relu.launches_by_shape.clear()
+        group_norm_relu.launches_by_variant.clear()
+    return (group_norm_relu.launches, dict(group_norm_relu.launches_by_shape),
+            dict(group_norm_relu.launches_by_variant))
+
+
+def _check_forwards(what: str, counts: tuple, forwards: dict) -> None:
+    """``counts`` are 7 GN launches per forward, ``forwards[n]`` forwards
+    at batch ``n`` (bf16), per shape, all through the cluster kernel."""
+    launches, by_shape, by_variant = counts
+    want = {(n, 128, hw, hw, "bfloat16", True): k * f
+            for n, f in forwards.items() for hw, k in GN_SITES.items()}
+    if launches != sum(want.values()) or by_shape != want:
+        raise AssertionError(f"{what}: GN launches {launches} {by_shape}, "
+                             f"expected 7 x forwards {forwards}: {want}")
+    _all_cluster(what, by_variant, by_shape)
+
+
+def _add_counts(total: dict, by_variant: dict) -> None:
+    for k, v in by_variant.items():
+        total[k] = total.get(k, 0) + v
+
+
+def _run_cli_overlay(argv: list) -> tuple:
+    """``cli.overlay`` with ``argv``; its result, what it printed and the
+    printed tumor fraction."""
+    from pdac_pathological_image_segmentation_tpu_torch.cli import (
+        overlay as cli_overlay,
+    )
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        result = cli_overlay.main(argv)
+    result["seconds"] = time.perf_counter() - t0
+    printed = buf.getvalue()
+    for line in printed.splitlines():
+        log(f"[wsi]   {line}")
+    if "warning" in printed:
+        raise AssertionError(f"cli.overlay warned: {printed}")
+    frac = float(printed.split("(tumor fraction ")[1].split(",")[0])
+    return result, printed, frac
+
+
+def _windows(side: int, stride: int, tile: int = TILE) -> int:
+    return len(range(0, side - tile + 1, stride)) + bool((side - tile)
+                                                         % stride)
+
+
+def _wsi_slide(side: int, seed: int) -> np.ndarray:
+    """A ``side``² H&E-like slide: the port's ``SyntheticSlideSource``
+    (tissue cells with a purple blob, 30% glass) read as one region."""
+    from pdac_pathological_image_segmentation_tpu_torch.data.synthetic import (
+        SyntheticSlideSource,
+    )
+
+    return SyntheticSlideSource(side, tile=TILE, seed=seed).read_region(
+        0, 0, side, side)
+
+
+def _check_prob_map(what: str, path: Path, shape: tuple, dtype) -> np.ndarray:
+    prob = np.load(path)
+    p = prob.astype(np.float32)
+    if prob.shape != shape or prob.dtype != dtype or not np.isfinite(p).all() \
+            or p.min() < 0 or p.max() > 1:
+        raise AssertionError(f"{what}: {path.name} {prob.shape} {prob.dtype} "
+                             f"range [{p.min()}, {p.max()}]")
+    return prob
+
+
+def _check_tiff_readback(what: str, path: Path, values: np.ndarray) -> int:
+    """The exported TIFF, read back with the port's ``TiffSlide``, holds
+    ``round(values * 255)`` at level 0 (in ``values``' own dtype, as the
+    writer takes it); returns its level count."""
+    from pdac_pathological_image_segmentation_tpu_torch.data.tiffslide import (
+        TiffSlide,
+    )
+
+    want = np.clip(np.round(values * 255.0), 0, 255).astype(np.uint8)
+    with TiffSlide(str(path)) as s:
+        w, h = s.dimensions(0)
+        got = s.read_region(0, 0, 0, w, h)
+        levels = s.level_count
+    if got.shape[:2] != values.shape or not np.array_equal(got[..., 0], want):
+        raise AssertionError(f"{what}: {path.name} read back differs")
+    return levels
+
+
+def phase_wsi_cli(tmp: Path, card: str) -> dict:
+    """``cli.overlay --device cuda`` with phase 5's FPN ``best.pth`` on the
+    config (bf16, batch max(128, 8)): a JPEG TIFF written by PIL (plain
+    runner, GeoJSON, TIFF export, region cleaning), a deflate pyramidal
+    tiled TIFF written by the port's writer (banded runner, stride 256,
+    hann, TTA, uncertainty), an exported artifact on the JPEG TIFF, and a
+    PyHIST directory.  Each run is a main path: the GN counters are set to
+    0 just before it and read just after; 7 launches per tile batch (x 8
+    with TTA), per shape, all cluster."""
+    import yaml
+    from PIL import Image
+
+    from pdac_pathological_image_segmentation_tpu_torch.cli import (
+        export as cli_export,
+    )
+    from pdac_pathological_image_segmentation_tpu_torch.data.geojson import (
+        parse_geojson,
+        rasterize_shapes,
+    )
+    from pdac_pathological_image_segmentation_tpu_torch.data.tiffwriter import (
+        write_tiff,
+    )
+
+    from pdac_pathological_image_segmentation_tpu_torch.data import tiffslide
+
+    set_tf32(False)
+    t0 = time.perf_counter()
+    lib = tiffslide.build()
+    gxx = subprocess.run(["g++", "--version"], capture_output=True,
+                         text=True).stdout.splitlines()[0]
+    log(f"[wsi] native TIFF reader (tiffreader.cpp + jpegdec.cpp, -lz) built "
+        f"by {gxx} in {time.perf_counter() - t0:.1f} s: "
+        f"{lib.relative_to(ROOT)}")
+    wsi = tmp / "wsi"
+    wsi.mkdir()
+    t0 = time.perf_counter()
+    slide = _wsi_slide(WSI_SIDE, seed=40)
+    jpeg, tiled = wsi / "slide_jpeg.tiff", wsi / "slide_tiled.tiff"
+    Image.fromarray(slide).save(jpeg, compression="jpeg", quality=90)
+    levels = write_tiff(str(tiled), slide, tile=256, compression="deflate",
+                        min_size=TILE)
+    # the PyHIST directory: a 3 x 3 grid of tile PNGs, one not kept
+    tiles_dir = wsi / "tiles"
+    tiles_dir.mkdir()
+    rows = ["Tile\tRow\tColumn\tKeep"]
+    for r in range(3):
+        for c in range(3):
+            name = f"tile_{r}_{c}.png"
+            Image.fromarray(slide[r * TILE:(r + 1) * TILE,
+                                  c * TILE:(c + 1) * TILE]).save(
+                tiles_dir / name, compress_level=1)
+            rows.append(f"{name}\t{r}\t{c}\t{0 if (r, c) == (2, 2) else 1}")
+    (wsi / "tile_selection.tsv").write_text("\n".join(rows) + "\n")
+    log(f"[wsi] inputs in {time.perf_counter() - t0:.1f} s: {WSI_SIDE}² JPEG "
+        f"TIFF ({jpeg.stat().st_size / 1e6:.1f} MB, PIL), tiled deflate "
+        f"pyramid {levels} ({tiled.stat().st_size / 1e6:.1f} MB, the port's "
+        "writer), 9 PyHIST tile PNGs (8 kept)")
+
+    cfg_path, cfg, _ = _train_config(tmp, "fpn", epochs=3)
+    # the config's own batch (the training phases cut it)
+    cfg.update({"batch_size": CONFIG_BATCH, "tile_path": str(tiles_dir),
+                "tsv_path": str(wsi / "tile_selection.tsv")})
+    cfg_path = wsi / "overlay.yaml"
+    cfg_path.write_text(yaml.safe_dump(cfg))
+    batch = max(cfg["batch_size"], 8)
+    pth = tmp / "train_fpn_out" / "pth" / "best.pth"
+    art = wsi / "fpn.pdacpt"
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli_export.main(["--config", str(cfg_path), "--pth_path", str(pth),
+                         "--out", str(art), "--tile", str(TILE)])
+    base = ["--config", str(cfg_path), "--device", "cuda"]
+    n_plain = _windows(WSI_SIDE, TILE) ** 2
+    n_over = _windows(WSI_SIDE, WSI_STRIDE)
+    # the banded runner pads every chunk of a band to the batch
+    band_rows = [sum(1 for y in range(0, WSI_SIDE - TILE + 1, WSI_STRIDE)
+                     if b * 4096 <= y < (b + 1) * 4096)
+                 for b in range(-(-WSI_SIDE // 4096))]
+    banded_batches = sum(-(-r * n_over // batch) for r in band_rows)
+    plain_batches = {n: k for n, k in ((batch, n_plain // batch),
+                                       (n_plain % batch, 1)) if n and k}
+    runs = [
+        ("jpeg", ["--pth_path", str(pth), "--slide", str(jpeg), "--geojson",
+                  "--export_tiff", "--min_region", "64", "--fill_holes",
+                  "64"], plain_batches),
+        ("tiled", ["--pth_path", str(pth), "--slide", str(tiled), "--banded",
+                   "--stride", str(WSI_STRIDE), "--blend", "hann", "--tta",
+                   "--uncertainty", "--export_tiff"],
+         {batch: 8 * banded_batches}),
+        ("artifact", ["--artifact", str(art), "--slide", str(jpeg)],
+         plain_batches),
+        ("pyhist", ["--pth_path", str(pth)], {8: 1}),
+    ]
+    total: dict = {}
+    outs = {}
+    for name, argv, forwards in runs:
+        out = wsi / f"out_{name}"
+        # -- the main path: launches counted from here ...
+        _gn_forward_counts(reset=True)
+        result, printed, frac = _run_cli_overlay(
+            base + argv + ["--save_path", str(out)])
+        counts = _gn_forward_counts()
+        # -- ... to here
+        _check_forwards(f"cli.overlay {name}", counts, forwards)
+        _add_counts(total, counts[2])
+        outs[name] = out
+        banded = name == "tiled"
+        side = 3 * TILE if name == "pyhist" else WSI_SIDE
+        prob = _check_prob_map(name, out / "probability_map.npy",
+                               (side, side),
+                               np.float16 if banded else np.float32)
+        png = np.asarray(Image.open(out / "overlay.png"))
+        if png.ndim != 3 or max(png.shape[:2]) > 2048:
+            raise AssertionError(f"{name}: overlay.png {png.shape}")
+        extra = ""
+        if name == "jpeg":
+            gj = json.loads((out / "annotations.geojson").read_text())
+            mask = rasterize_shapes(parse_geojson(gj), side, side)
+            saved = float(mask.mean())
+            fracs = {f["properties"]["measurements"]["tumor_fraction"]
+                     for f in gj["features"]}
+            if fracs - {saved}:
+                raise AssertionError(f"{name}: GeoJSON tumor_fraction "
+                                     f"{fracs} vs its own mask {saved}")
+            tiff_levels = _check_tiff_readback(
+                name, out / "probability_map.tiff", prob)
+            extra = (f"; {len(gj['features'])} GeoJSON polygons, rasterized "
+                     f"back: mean {saved:.6f}; probability_map.tiff "
+                     f"{tiff_levels} levels read back equal")
+        else:
+            saved = float((prob >= 0.5).mean())
+        # the banded runner thresholds the float32 map and saves it in
+        # float16: a pixel just under 0.5 may round to 0.5 exactly
+        low = float((prob > 0.5).mean()) if banded else saved
+        if not low - 1e-12 <= result["tumor_fraction"] <= saved + 1e-12 \
+                or abs(frac - result["tumor_fraction"]) > 5e-5:
+            raise AssertionError(f"{name}: tumor fraction {frac} printed, "
+                                 f"{result['tumor_fraction']} returned, "
+                                 f"[{low}, {saved}] in the saved map")
+        if banded:
+            unc = _check_prob_map(name, out / "uncertainty_map.npy",
+                                  (side, side), np.float16)
+            if float(unc.astype(np.float32).max()) > 0.25:
+                raise AssertionError(f"{name}: uncertainty above 0.25")
+            _check_tiff_readback(name, out / "probability_map.tiff", prob)
+            if not (out / "uncertainty_map.tiff").is_file():
+                raise AssertionError(f"{name}: no uncertainty_map.tiff")
+            extra = (f"; uncertainty mean "
+                     f"{float(unc.astype(np.float32).mean()):.5f}, max "
+                     f"{float(unc.astype(np.float32).max()):.5f}; both TIFFs "
+                     "written, the probabilities read back equal")
+        if name == "artifact":
+            d = float(np.abs(prob - np.load(
+                outs["jpeg"] / "probability_map.npy")).max())
+            if d > 1e-6:
+                raise AssertionError(f"artifact vs pth: max |Δp| {d}")
+            extra = f"; vs --pth_path max |Δp| {d:.3g}"
+        if name == "pyhist" and prob[2 * TILE:, 2 * TILE:].max() != 0:
+            raise AssertionError("pyhist: the tile not kept was predicted")
+        log(f"[wsi] {name}: {result['n_tiles']} windows in "
+            f"{result['seconds']:.1f} s, tumor fraction {saved:.6f} (printed "
+            f"{frac}), overlay.png {png.shape[1]}x{png.shape[0]}; GN "
+            f"launches {counts[0]} = 7 x {sum(forwards.values())} forwards "
+            f"{forwards}, all cluster{extra}")
+    return total
+
+
+def phase_wsi_timed(tmp: Path, card: str) -> dict:
+    """The JAX rounds' whole-slide program: a 40,960² ``SyntheticSlideSource``
+    at stride 256 (25,281 windows), hann, through ``BandedSlidingWindow``
+    with band input, FPN/resnet18 bf16 from phase 5's ``best.pth``, batch
+    128.  One run, profiled for the device's busy share."""
+    import yaml
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pdac_pathological_image_segmentation_tpu_torch import Config
+    from pdac_pathological_image_segmentation_tpu_torch.data.synthetic import (
+        SyntheticSlideSource,
+    )
+    from pdac_pathological_image_segmentation_tpu_torch.infer.evaluate import (
+        load_serving_state,
+    )
+    from pdac_pathological_image_segmentation_tpu_torch.infer.wsi import (
+        BandedSlidingWindow,
+    )
+
+    set_tf32(False)
+    _, cfg_d, _ = _train_config(tmp, "fpn", epochs=3)
+    cfg = Config.from_dict(dict(cfg_d, batch_size=CONFIG_BATCH))
+    batch = max(cfg.batch_size, 8)
+    model, _ = load_serving_state(
+        cfg, str(tmp / "train_fpn_out" / "pth" / "best.pth"), "cuda")
+    source = SyntheticSlideSource(WSI_TIMED_SIDE, tile=TILE,
+                                  stride=WSI_STRIDE, seed=41)
+    runner = BandedSlidingWindow(model, tile=TILE, batch_size=batch,
+                                 blend="hann", num_workers=cfg.num_worker)
+    per_band = {}
+    for y, _ in source.coords:
+        b = min(y // runner.band_h, -(-WSI_TIMED_SIDE // runner.band_h) - 1)
+        per_band[b] = per_band.get(b, 0) + 1
+    batches = sum(-(-n // batch) for n in per_band.values())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # -- the main path: launches counted from here ...
+    _gn_forward_counts(reset=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        prob, mask = runner.run(source)
+        wall = time.perf_counter() - t0
+    counts = _gn_forward_counts()
+    # -- ... to here
+    peak = torch.cuda.max_memory_allocated()
+    _check_forwards("banded 40,960²", counts, {batch: batches})
+    events = [ev for ev in prof.key_averages()
+              if ev.device_type == DeviceType.CUDA]
+    copies = sum(ev.self_device_time_total for ev in events
+                 if ev.key.startswith(("Memcpy", "Memset"))) / 1e6
+    kernels = sum(ev.self_device_time_total for ev in events) / 1e6 - copies
+    n = len(source)
+    if prob.shape != (WSI_TIMED_SIDE,) * 2 or prob.dtype != np.float16 \
+            or mask.shape != prob.shape:
+        raise AssertionError(f"40k maps {prob.shape} {prob.dtype}")
+    sample = prob[::97, ::89].astype(np.float32)
+    if not np.isfinite(sample).all() or sample.min() < 0 or sample.max() > 1:
+        raise AssertionError("40k probabilities out of [0, 1]")
+    stats = runner.last_run
+    out = {"windows": n, "wall_s": wall, "windows_per_s": n / wall,
+           "kernel_s": kernels, "copy_s": copies,
+           "busy_share": kernels / wall, "peak_bytes": peak,
+           "upload_gb": stats["band_upload_bytes"] / 1e9,
+           "upload_s": stats["band_upload_s"], "read_s": stats["band_read_s"],
+           "bands": stats["bands"], "gn_launches": counts[0],
+           "batches": batches, "tumor_fraction": float(mask[::7, ::7].mean())}
+    log(f"[wsi-40k] {WSI_TIMED_SIDE}² synthetic slide, stride {WSI_STRIDE}, "
+        f"hann, band input, FPN/resnet18 bf16, batch {batch}: {n} windows in "
+        f"{wall:.2f} s wall = {n / wall:.1f} windows/s; device kernels "
+        f"{kernels:.2f} s, busy share {kernels / wall:.3f}; copies "
+        f"{copies:.2f} s; peak device memory {peak / 2 ** 30:.2f} GiB; "
+        f"{stats['bands']} bands, upload {out['upload_gb']:.3f} GB in "
+        f"{stats['band_upload_s']:.3f} s of copies (host reads "
+        f"{stats['band_read_s']:.1f} s); GN launches {counts[0]} = 7 x "
+        f"{batches} batches, all cluster; on {card}")
+    del prob, mask
+    return {"summary": out, "by_variant": counts[2]}
+
+
+def phase_wsi_card_vs_cpu(tmp: Path) -> None:
+    """f32, TF32 off, phase 5's FPN ``best.pth`` on a 1024² ``GridTiler``
+    slide at stride 256, hann: the card's plain runner against the CPU's,
+    with and without TTA (probabilities within 5e-4, masks ≥ 99.9% equal),
+    and the card's banded runner (two bands) against its plain one within
+    float16 rounding."""
+    from pdac_pathological_image_segmentation_tpu_torch import Config
+    from pdac_pathological_image_segmentation_tpu_torch.infer.evaluate import (
+        load_serving_state,
+    )
+    from pdac_pathological_image_segmentation_tpu_torch.infer.wsi import (
+        BandedSlidingWindow,
+        GridTiler,
+        SlidingWindowInference,
+    )
+
+    set_tf32(False)
+    _, cfg_d, _ = _train_config(tmp, "fpn", epochs=3)
+    cfg = Config.from_dict(dict(cfg_d, compute_dtype="float32"))
+    pth = str(tmp / "train_fpn_out" / "pth" / "best.pth")
+    tiler = GridTiler(_wsi_slide(WSI_CPU_SIDE, seed=42), tile=TILE,
+                      stride=WSI_STRIDE)
+    models = {d: load_serving_state(cfg, pth, d)[0] for d in ("cuda", "cpu")}
+    for tta in (False, True):
+        kw = dict(tile=TILE, batch_size=CONFIG_BATCH, tta=tta, blend="hann",
+                  num_workers=cfg.num_worker)
+        t0 = time.perf_counter()
+        card_p, card_m = SlidingWindowInference(models["cuda"], **kw).run(
+            tiler)
+        t1 = time.perf_counter()
+        cpu_p, cpu_m = SlidingWindowInference(models["cpu"], **kw).run(tiler)
+        t2 = time.perf_counter()
+        err = float(np.abs(card_p - cpu_p).max())
+        agree = float((card_m == cpu_m).mean())
+        if err > 5e-4 or agree < 0.999:
+            raise AssertionError(f"wsi card vs CPU (tta={tta}): max |Δp| "
+                                 f"{err}, masks equal {agree}")
+        band_p, band_m = BandedSlidingWindow(models["cuda"], band_h=TILE,
+                                             **kw).run(tiler)
+        d = np.abs(band_p.astype(np.float32) - card_p)
+        bound = np.abs(card_p) * 2.0 ** -11 + 1e-6
+        if (d > bound).any() or (band_m != card_m).mean() > 1e-4:
+            raise AssertionError(f"wsi banded vs plain (tta={tta}): max "
+                                 f"|Δp| {float(d.max())}")
+        log(f"[wsi-card-vs-cpu] {WSI_CPU_SIDE}², stride {WSI_STRIDE}, hann, "
+            f"tta={tta}, f32, TF32 off, {len(tiler)} windows: max |Δp| "
+            f"{err:.3g} (bound 5e-4), masks equal {agree:.6f} (gate 0.999); "
+            f"banded (2 bands, float16 out) vs plain on the card max |Δp| "
+            f"{float(d.max()):.3g} (bound float16 rounding + 1e-6); card "
+            f"{t1 - t0:.1f} s, CPU {t2 - t1:.1f} s")
+
+
 # -- phase 6: the timed train step ------------------------------------------
 
 def _train_setup(cfg, sd: dict, device: str):
@@ -1396,6 +1815,19 @@ def main() -> int:
         train = phase_training(tmp, "fpn")
         train_unet = phase_training(tmp, "unet")
         evaluation = phase_evaluation(tmp)
+        phase_timed_step(card, "fpn")
+        phase_timed_step(card, "unet")
+        phase_train_card_vs_cpu("fpn")
+        phase_train_card_vs_cpu("unet")
+        phase_card_vs_cpu(sd, "fpn")
+        phase_card_vs_cpu(unet["sd"], "unet")
+        phase_bf16_vs_f32(sd, "fpn")
+        phase_bf16_vs_f32(unet["sd"], "unet", head="bfloat16")
+        # last: its long profiled run must not disturb the phases' profiles
+        wsi = phase_wsi_cli(tmp, card)
+        wsi_timed = phase_wsi_timed(tmp, card)
+        _add_counts(wsi, wsi_timed["by_variant"])
+        phase_wsi_card_vs_cpu(tmp)
     for row in kernels:
         # launches on the main paths, by variant and shape: 0 for rows off
         # them
@@ -1408,7 +1840,8 @@ def main() -> int:
             if row["name"] == "group_norm_relu":
                 paths = {"serve": serve_by_variant.get(key, 0),
                          "train": train["gn_forward"][2].get(key, 0),
-                         "eval": evaluation["by_variant"].get(key, 0)}
+                         "eval": evaluation["by_variant"].get(key, 0),
+                         "wsi": wsi.get(key, 0)}
             else:
                 paths = {"train": train["gn_backward"][2].get(key, 0)}
         row["launches"] = sum(paths.values())
@@ -1418,20 +1851,14 @@ def main() -> int:
                        ("fused_train_transform", "train_unet"),
                        ("group_norm_relu", "serve"),
                        ("group_norm_relu", "eval"),
+                       ("group_norm_relu", "wsi"),
                        ("group_norm_relu_backward", "train")):
         if not sum(r["launches_by_path"][path] for r in kernels
                    if r["name"] == name
                    and r.get("variant", "cluster") == "cluster"):
             raise AssertionError(f"{name} was not launched on the {path} "
                                  "path")
-    phase_timed_step(card, "fpn")
-    phase_timed_step(card, "unet")
-    phase_train_card_vs_cpu("fpn")
-    phase_train_card_vs_cpu("unet")
-    phase_card_vs_cpu(sd, "fpn")
-    phase_card_vs_cpu(unet["sd"], "unet")
-    phase_bf16_vs_f32(sd, "fpn")
-    phase_bf16_vs_f32(unet["sd"], "unet", head="bfloat16")
+    print(json.dumps({"wsi_40k": wsi_timed["summary"]}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,7 +16,8 @@ from pdac_pathological_image_segmentation_tpu_torch.config import (
     load_config,
 )
 
-__all__ = ["Config", "host_to_device", "load_config", "resolve_device"]
+__all__ = ["Config", "device_to_host", "host_to_device", "load_config",
+           "resolve_device"]
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -40,3 +41,13 @@ def host_to_device(t: torch.Tensor, device) -> torch.Tensor:
     if device.type == "cuda" and t.device.type == "cpu":
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)
+
+
+def device_to_host(tensors) -> list:
+    """The tensors as numpy arrays, in one fetch: every copy is queued
+    without blocking, then the host waits once."""
+    host = [t.to("cpu", non_blocking=True) for t in tensors]
+    cuda = [t for t in tensors if t.is_cuda]
+    if cuda:
+        torch.cuda.current_stream(cuda[0].device).synchronize()
+    return [h.numpy() for h in host]

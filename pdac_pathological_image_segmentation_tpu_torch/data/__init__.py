@@ -1,1 +1,2 @@
-"""Patch discovery and loading of the port."""
+"""Patch discovery and loading, slide reading and writing, and GeoJSON of
+the port."""

@@ -1,1 +1,2 @@
-"""Serving of the port: artifacts and the HTTP daemon."""
+"""Inference of the port: artifacts, the HTTP daemon, evaluation and
+whole-slide runners."""

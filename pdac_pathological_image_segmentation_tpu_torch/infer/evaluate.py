@@ -17,7 +17,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-from pdac_pathological_image_segmentation_tpu_torch import resolve_device
+from pdac_pathological_image_segmentation_tpu_torch import (
+    device_to_host,
+    resolve_device,
+)
 from pdac_pathological_image_segmentation_tpu_torch.config import Config
 from pdac_pathological_image_segmentation_tpu_torch.data.loader import (
     PatchDataset,
@@ -83,15 +86,6 @@ def load_serving_state(cfg: Config, pth_path: str, device="cuda"):
     return model.to(dev).eval(), path
 
 
-def _to_host(tensors) -> list:
-    """The tensors as numpy arrays, in one fetch: every copy is queued
-    without blocking, then the host waits once."""
-    host = [t.to("cpu", non_blocking=True) for t in tensors]
-    if any(t.is_cuda for t in tensors):
-        torch.cuda.current_stream(tensors[0].device).synchronize()
-    return [h.numpy() for h in host]
-
-
 class Evaluator:
     """The test harness: ``Evaluator(cfg, pth_path, device).run(test_set)``."""
 
@@ -140,8 +134,9 @@ class Evaluator:
                 batch.image, batch.mask, batch.valid)
             figures = bool(figure_path) and (max_figures is None
                                              or count < max_figures)
-            fetched = _to_host([loss, score, counts, hists, batch.valid]
-                               + ([preds, msks, originals] if figures else []))
+            fetched = device_to_host(
+                [loss, score, counts, hists, batch.valid]
+                + ([preds, msks, originals] if figures else []))
             loss_h, score_h, counts_h, hists_h, valid_h = fetched[:5]
             hist_total += hists_h
             loss_meter.update(float(loss_h))

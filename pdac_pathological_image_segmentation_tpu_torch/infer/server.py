@@ -15,8 +15,8 @@ Endpoints: ``GET /healthz``, ``GET /v1/metadata``, ``GET /v1/stats``,
 ``X-Image-Shape``; the response is an 8-bit probability PNG, raw float32
 under ``Accept: application/octet-stream``, or raw uint8 with
 ``;repr=u8`` — flagged back via ``X-Prob-Repr`` — always with
-``X-Tumor-Fraction``).  ``Accept: application/geo+json`` is answered with
-406 until the GeoJSON module is ported.
+``X-Tumor-Fraction``; ``Accept: application/geo+json`` gets the polygons of
+``probs >= threshold`` in tile-local pixels as a QuPath FeatureCollection).
 """
 
 from __future__ import annotations
@@ -37,9 +37,6 @@ from pdac_pathological_image_segmentation_tpu_torch.infer.export import (
 )
 
 DEFAULT_BUCKETS = (1, 8, 32)
-GEOJSON_NOT_PORTED = ("application/geo+json responses need data/geojson.py, "
-                      "which is not ported yet (ROADMAP.md Queue 1, item 4: "
-                      "WSI and GeoJSON)")
 
 
 class _Pending:
@@ -314,9 +311,6 @@ class _Handler(BaseHTTPRequestHandler):
         try:
             length = int(self.headers.get("Content-Length", "0"))
             body = self.rfile.read(length)
-            if "geo+json" in accept:
-                self._send_json(406, {"error": GEOJSON_NOT_PORTED})
-                return
             image = _decode_body(
                 body, self.headers.get("Content-Type", ""),
                 self.headers.get("X-Image-Shape", ""),
@@ -341,6 +335,19 @@ class _Handler(BaseHTTPRequestHandler):
             else:
                 payload = probs.astype(np.float32).tobytes()
             ctype = "application/octet-stream"
+        elif "geo+json" in accept:
+            # QuPath-importable annotation polygons in tile-local pixel
+            # coordinates (exact pixel-boundary tracing, data/geojson.py)
+            from pdac_pathological_image_segmentation_tpu_torch.data.geojson import (
+                mask_to_polygons,
+                polygons_to_geojson,
+            )
+
+            fc = polygons_to_geojson(
+                mask_to_polygons(probs >= srv.threshold),
+                measurements={"tumor_fraction": tumor_fraction})
+            payload = json.dumps(fc).encode()
+            ctype = "application/geo+json"
         else:
             from PIL import Image
 

@@ -1,2 +1,2 @@
 """Tensor ops of the port: the hand-written GroupNorm+ReLU kernel and the
-resize helpers."""
+resize helpers, stitching and tissue masks."""

@@ -144,7 +144,9 @@ def fold_normalize_into_stem(weight: torch.Tensor) -> torch.Tensor:
 def make_infer_step(model: nn.Module, img_size: int, stain: str = "none"):
     """``step(images_u8) → probs`` — the tile→mask inference path (resize,
     normalize fold, forward, sigmoid), mirroring the JAX
-    ``make_infer_step``.
+    ``make_infer_step``.  The step puts the model in eval mode itself (the
+    JAX step is always ``train=False``), so a model the trainer left in
+    train mode is still normalized with its running statistics.
 
     ``images_u8`` is a uint8 ``(N, H, W, 3)`` tensor on the model's device.
     Tiles of another size are resized to ``img_size`` (float32 bilinear,
@@ -165,6 +167,7 @@ def make_infer_step(model: nn.Module, img_size: int, stain: str = "none"):
 
     @torch.inference_mode()
     def step(images: torch.Tensor) -> torch.Tensor:
+        model.eval()
         folded = {STEM: fold_normalize_into_stem(stem)}
         x = images.permute(0, 3, 1, 2)
         if tuple(x.shape[-2:]) != (img_size, img_size):

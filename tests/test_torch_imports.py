@@ -56,7 +56,9 @@ def test_port_modules_import_without_jax():
         "ops.dice", "train.objective", "train.state", "train.schedule",
         "train.checkpoint", "train.loop", "utils.meters", "data.discovery",
         "data.loader", "cli.train", "models.resunet", "ops.metrics",
-        "infer.figures", "infer.evaluate", "cli.test")}
+        "infer.figures", "infer.evaluate", "cli.test", "ops.tissue",
+        "ops.stitch", "data.tiffwriter", "data.tiffslide", "data.geojson",
+        "data.synthetic", "infer.wsi", "cli.overlay")}
     assert expected <= set(out["imported"])
     assert [m for m in out["modules"] if _forbidden(m)] == []
 
@@ -123,6 +125,31 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(tmp_path):
         test.main(["--config", str(cfg_path), "--save_path",
                    str(tmp_path / "out"), "--pth_path", str(pth)])
     assert not (tmp_path / "out").exists()
+
+
+def test_cli_overlay_defaults_to_cuda_and_raises_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the card-less "
+                    "behaviour")
+    from pdac_pathological_image_segmentation_tpu_torch.cli import overlay
+
+    cfg = tmp_path / "cfg.yaml"
+    cfg.write_text("model: fpn\nimg_size: 64\n")
+    argv = ["--config", str(cfg), "--save_path", str(tmp_path / "out"),
+            "--pth_path", str(tmp_path)]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        overlay.main(argv)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        overlay.main(argv + ["--device", "cuda"])
+    assert not (tmp_path / "out").exists()
+    # the runners take the model's device, or the device they are given
+    from pdac_pathological_image_segmentation_tpu_torch.infer.wsi import (
+        SlidingWindowInference,
+    )
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SlidingWindowInference(None, tile=64, infer_step=lambda x: x,
+                               device="cuda")
 
 
 def test_cuda_tensor_without_kernel_raises_not_falls_back():

@@ -3,9 +3,10 @@
 
 Pinned here, as ``tests/test_server.py`` pins the JAX daemon: the raw
 float32 response is bit-equal to the direct artifact call, concurrent
-requests coalesce into shared bucket batches, resize-on-ingest, and the
-error surface (415/400/404, and 406 for the GeoJSON response the port
-does not have yet).  Across packages: the port server and the JAX server
+requests coalesce into shared bucket batches, resize-on-ingest, the
+error surface (415/400/404), and the ``Accept: application/geo+json``
+response, equal to the JAX ``polygons_to_geojson`` of the same
+probabilities.  Across packages: the port server and the JAX server
 answer the same tile, from the same weights, within ``atol=5e-4``, and
 each package's loader refuses the other's artifact.
 """
@@ -234,12 +235,35 @@ def test_error_surface(server):
         assert e.value.code == code, (path, headers)
 
 
-def test_geojson_is_refused_until_ported(server):
-    img = np.zeros((TILE, TILE, 3), np.uint8)
-    with pytest.raises(urllib.error.HTTPError) as e:
-        _post(server, img.tobytes(), {**RAW, "Accept": "application/geo+json"})
-    assert e.value.code == 406
-    assert "ROADMAP" in json.loads(e.value.read())["error"]
+def test_geojson_response_matches_jax_polygons(server, artifact):
+    """The polygons of ``probs >= threshold`` in tile-local pixels, with
+    ``tumor_fraction`` in the measurements and ``X-Tumor-Fraction`` as on
+    every response: equal to the JAX package's ``polygons_to_geojson`` of
+    the direct call's probabilities."""
+    from pdac_pathological_image_segmentation_tpu.data.geojson import (
+        mask_to_polygons as jax_mask_to_polygons,
+        polygons_to_geojson as jax_polygons_to_geojson,
+    )
+
+    img = np.random.default_rng(17).integers(0, 256, (TILE, TILE, 3),
+                                             dtype=np.uint8)
+    with _post(server, img.tobytes(),
+               {**RAW, "Accept": "application/geo+json"}) as resp:
+        assert resp.status == 200
+        assert resp.headers["Content-Type"] == "application/geo+json"
+        frac = float(resp.headers["X-Tumor-Fraction"])
+        got = json.loads(resp.read())
+    probs = artifact(img[None])[0]
+    mask = probs >= server.threshold
+    assert 0.0 < mask.mean() < 1.0
+    assert frac == pytest.approx(float(mask.mean()), abs=1e-6)
+    want = jax_polygons_to_geojson(
+        jax_mask_to_polygons(mask),
+        measurements={"tumor_fraction": float(mask.mean())})
+    assert got["type"] == "FeatureCollection" and got["features"]
+    for f in got["features"] + want["features"]:
+        f.pop("id")  # a fresh uuid per feature
+    assert got == json.loads(json.dumps(want))
 
 
 def test_stats_shape(server):

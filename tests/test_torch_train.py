@@ -20,6 +20,7 @@ at 64²:
 import csv
 import math
 import shutil
+from collections import namedtuple
 
 import jax
 import jax.numpy as jnp
@@ -56,12 +57,14 @@ from pdac_pathological_image_segmentation_tpu.train.state import (
     create_train_state,
 )
 from pdac_pathological_image_segmentation_tpu.train.steps import (
+    make_infer_step as jax_make_infer_step,
     make_train_step as jax_make_train_step,
 )
 from pdac_pathological_image_segmentation_tpu.utils.meters import (
     EarlyStop as JaxEarlyStop,
 )
 from pdac_pathological_image_segmentation_tpu.utils.torch_weights import (
+    convert_resunet_state_dict,
     convert_smp_fpn_state_dict,
     load_reference_checkpoint_full,
 )
@@ -104,6 +107,7 @@ from pdac_pathological_image_segmentation_tpu_torch.train.state import (
     parameter_names,
 )
 from pdac_pathological_image_segmentation_tpu_torch.train.steps import (
+    make_infer_step,
     make_train_step,
     step_generator,
 )
@@ -295,6 +299,38 @@ def test_bf16_train_step_runs_batchnorm_and_gn_backward():
         assert p.dtype == torch.float32, k
         assert torch.isfinite(p.grad).all() and p.grad.abs().sum() > 0, k
     assert int(model.encoder.bn1.num_batches_tracked) == 1
+
+
+@pytest.mark.parametrize("model_name,convert", [
+    ("fpn", convert_smp_fpn_state_dict), ("unet", convert_resunet_state_dict)])
+def test_infer_step_puts_a_train_mode_model_in_eval_mode(model_name, convert):
+    """A model the trainer left in train mode gives the JAX
+    ``make_infer_step``'s probabilities (always ``train=False``: running
+    statistics, no dropout) within the FPN bound, 5e-4, and is left in eval
+    mode.  In train mode FPN's Dropout2d would need a generator and BN
+    would take the batch's statistics."""
+    cfg = Config(model=model_name, img_size=SIZE, compute_dtype="float32")
+    model = build_model(cfg)
+    sd = seeded_state_dict(model, seed=23)
+    model.load_state_dict(sd, strict=True)
+    model.train()
+    imgs = np.random.default_rng(4).integers(0, 256, (3, SIZE, SIZE, 3),
+                                             dtype=np.uint8)
+    ours = make_infer_step(model, SIZE)(torch.from_numpy(imgs)).numpy()
+    assert not model.training
+
+    jmodel = jax_build_model(JaxConfig(model=model_name, img_size=SIZE,
+                                       compute_dtype="float32"))
+    variables = jax.jit(jmodel.init, static_argnames=("train",))(
+        {"params": jax.random.PRNGKey(0)}, jnp.zeros((1, SIZE, SIZE, 3)),
+        train=False)
+    params, batch_stats = convert({k: v.numpy() for k, v in sd.items()},
+                                  variables["params"],
+                                  variables["batch_stats"])
+    state = namedtuple("_S", "params batch_stats")(params, batch_stats)
+    ref = np.asarray(jax_make_infer_step(jmodel, SIZE)(state,
+                                                       jnp.asarray(imgs)))
+    np.testing.assert_allclose(ours, ref, rtol=0, atol=5e-4)
 
 
 @pytest.mark.parametrize("knob,value", [("remat", True),
