@@ -5,10 +5,11 @@
 
 The flags are the JAX package's ``cli/export.py``'s.  ``--pth_path`` is a
 reference-format ``.pth`` (``{"model": state_dict}`` or a bare
-``state_dict``, ``module.`` prefixes allowed): smp names for FPN, the
-reference ResUNet's for unet (its ``encoder.fc.*`` is dropped), or the
-port's own ``latest.pth``/``best.pth``.  ``head_dtype`` (a config extra)
-goes into the artifact.  Orbax directories are the JAX package's format
+``state_dict``, ``module.`` prefixes allowed): smp names for FPN,
+DeepLabV3+ and PSPNet, the reference ResUNet's for unet (its
+``encoder.fc.*`` is dropped), or the port's own ``latest.pth``/``best.pth``
+(UNet++'s among them).  ``head_dtype`` (a config extra) and ``dilations``
+go into the artifact.  Orbax directories are the JAX package's format
 and are not read here.  The
 artifact holds the weights, not a compiled program: every batch size and
 the device are chosen at load time.  ``--batch``, ``--platforms`` and
@@ -28,8 +29,9 @@ def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(description="pathology_project")
     parser.add_argument("--config", type=str, required=True)
     parser.add_argument("--pth_path", required=True,
-                        help="reference .pth file (smp FPN or reference "
-                        "ResUNet names) or the port's latest/best.pth")
+                        help="reference .pth file (smp FPN, DeepLabV3+ or "
+                        "PSPNet names, or reference ResUNet names) or the "
+                        "port's latest/best.pth")
     parser.add_argument("--out", required=True,
                         help="output artifact path (suggest .pdacpt)")
     parser.add_argument("--tile", type=int, default=None,

@@ -5,8 +5,9 @@ device:
         --config cfg.yaml --save_path runs/eval --pth_path runs/fpn/pth \\
         [--device cpu]
 
-``--pth_path`` is a ``.pth`` file (a reference checkpoint, smp FPN names or
-the reference ResUNet's with ``encoder.fc``, or the port's own) or a
+``--pth_path`` is a ``.pth`` file (a reference checkpoint, smp FPN,
+DeepLabV3+ or PSPNet names or the reference ResUNet's with ``encoder.fc``,
+or the port's own) or a
 directory holding ``best.pth`` (preferred) or ``latest.pth``.  It prints
 the mean Test Score / Test Loss and writes triptych figures to
 ``<save_path>/figure`` (matplotlib is needed only for them), per-sample

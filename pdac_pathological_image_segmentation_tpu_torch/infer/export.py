@@ -3,10 +3,12 @@
 Layout: an 8-byte magic (:data:`MAGIC`, distinct from the JAX package's
 ``PDACSRV1``, whose loader therefore refuses this file as "bad magic"), a
 u32 little-endian length, JSON metadata (tile, model, backbone, stain,
-int8, compute_dtype, head_dtype, num_classes), then ``torch.save`` of the
-model's ``state_dict``.  Loading rebuilds the model from the metadata on
-the requested device; an artifact without ``head_dtype`` loads with a
-float32 head.
+int8, compute_dtype, head_dtype, num_classes, dilations), then
+``torch.save`` of the model's ``state_dict``.  Loading rebuilds the model
+from the metadata on the requested device; an artifact without
+``head_dtype`` loads with a float32 head, one without ``dilations`` with
+the default atrous rates (3, 6, 9).  DeepLabV3+'s weights have the same
+shapes at any rates, so the rates must travel in the metadata.
 """
 
 from __future__ import annotations
@@ -60,6 +62,7 @@ def export_serving_artifact(cfg: Config, state_dict: Mapping[str, torch.Tensor],
         "compute_dtype": cfg.compute_dtype,
         "head_dtype": str(cfg.extras.get("head_dtype", "float32")).lower(),
         "num_classes": int(cfg.num_classes),
+        "dilations": [int(d) for d in cfg.dilations],
     }).encode()
     buf = io.BytesIO()
     torch.save({k: v.detach().cpu() for k, v in state_dict.items()}, buf)
@@ -151,8 +154,9 @@ def load_serving_artifact(path: str, device="cuda") -> ServingArtifact:
                  img_size=int(meta["tile"]), stain=meta["stain"],
                  compute_dtype=meta["compute_dtype"],
                  num_classes=int(meta.get("num_classes", 1)),
-                 # artifacts written before the field existed have an f32
-                 # head
+                 # artifacts written before these fields existed have an
+                 # f32 head and the default rates
+                 dilations=tuple(meta.get("dilations", (3, 6, 9))),
                  extras={"head_dtype": meta.get("head_dtype", "float32")})
     model = build_model(cfg)
     model.load_state_dict(state_dict, strict=True)

@@ -1,4 +1,5 @@
-"""Models of the port (FPN on the ResNet encoders so far)."""
+"""Models of the port: the registry's five architectures on the ResNet
+encoders."""
 
 from pdac_pathological_image_segmentation_tpu_torch.models.registry import (
     build_model,

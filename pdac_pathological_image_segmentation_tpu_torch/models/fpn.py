@@ -16,8 +16,9 @@ through ``fpn_pallas_gn`` because of TPU layout copies around the custom
 call; the card has no such cost, so the port has no such switch.)
 
 In train mode BatchNorm takes batch statistics (torch's momentum 0.1 is
-flax's 0.9) and Dropout2d draws its per-(n, c) mask from the generator
-passed to :meth:`FPN.forward`, never from the global RNG.
+flax's 0.9) and Dropout2d (``models/dropout.py``) draws its per-(n, c)
+mask from the generator passed to :meth:`FPN.forward`, never from the
+global RNG.
 """
 
 from __future__ import annotations
@@ -26,7 +27,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from pdac_pathological_image_segmentation_tpu_torch import host_to_device
+from pdac_pathological_image_segmentation_tpu_torch.models.dropout import (
+    Dropout2d,
+)
 from pdac_pathological_image_segmentation_tpu_torch.models.encoders import (
     build_encoder,
     encoder_feature_channels,
@@ -60,32 +63,6 @@ class GroupNormReLU(nn.Module):
         return group_norm_relu_trainable(x, self.weight, self.bias,
                                          num_groups=self.num_groups,
                                          eps=GN_EPS)
-
-
-class Dropout2d(nn.Module):
-    """Whole-channel dropout (flax ``nn.Dropout(broadcast_dims=(1, 2))``,
-    torch ``nn.Dropout2d``): in train mode each (n, c) plane is kept with
-    probability ``1 - p`` and scaled by ``1 / (1 - p)``.  The mask is drawn
-    on ``generator``'s device from that generator alone."""
-
-    def __init__(self, p: float = 0.2) -> None:
-        super().__init__()
-        if not 0.0 <= p < 1.0:
-            raise ValueError(f"dropout p must be in [0, 1), got {p}")
-        self.p = p
-
-    def forward(self, x: torch.Tensor,
-                generator: torch.Generator | None = None) -> torch.Tensor:
-        if not self.training or self.p == 0.0:
-            return x
-        if generator is None:
-            raise ValueError("Dropout2d in train mode needs an explicit "
-                             "torch.Generator")
-        n, c = x.shape[:2]
-        keep = torch.rand((n, c, 1, 1), generator=generator,
-                          device=generator.device) >= self.p
-        keep = host_to_device(keep, x.device)
-        return torch.where(keep, x / (1.0 - self.p), torch.zeros_like(x))
 
 
 class Conv3x3GNReLU(nn.Module):

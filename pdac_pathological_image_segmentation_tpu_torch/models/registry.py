@@ -1,5 +1,7 @@
 """Model factory keyed by ``cfg.model`` (the JAX package's
-``models/registry.py``).  The port builds FPN and ResUNet so far."""
+``models/registry.py``): all five architectures.  ``pspnet+`` (the
+reference ``test.py``'s typo) is canonicalised to ``pspnet`` by
+``Config``."""
 
 from __future__ import annotations
 
@@ -7,18 +9,19 @@ import torch
 import torch.nn as nn
 
 from pdac_pathological_image_segmentation_tpu_torch.config import Config
+from pdac_pathological_image_segmentation_tpu_torch.models.deeplabv3plus import (
+    DeepLabV3Plus,
+)
 from pdac_pathological_image_segmentation_tpu_torch.models.fpn import FPN
+from pdac_pathological_image_segmentation_tpu_torch.models.pspnet import PSPNet
 from pdac_pathological_image_segmentation_tpu_torch.models.resunet import (
     ResUNet,
 )
+from pdac_pathological_image_segmentation_tpu_torch.models.unetplusplus import (
+    UNetPlusPlus,
+)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-_ROADMAP = {
-    name: "ROADMAP.md Queue 1, item 4 (the reference's other architectures)"
-    for name in ("deeplabv3+", "pspnet", "unet++")
-}
-
 
 def _dtype(name, what: str) -> torch.dtype:
     key = str(name).lower()
@@ -40,11 +43,16 @@ def build_model(cfg: Config) -> nn.Module:
                                                          "float32"),
                                           "head_dtype"))
         return model.eval()
+    common = dict(num_classes=cfg.num_classes, output_size=cfg.img_size,
+                  backbone=cfg.backbone, compute_dtype=dtype)
     if cfg.model == "fpn":
-        model = FPN(num_classes=cfg.num_classes, output_size=cfg.img_size,
-                    backbone=cfg.backbone, compute_dtype=dtype)
-        return model.eval()
-    if cfg.model in _ROADMAP:
-        raise NotImplementedError(
-            f"model {cfg.model!r} is not ported yet: {_ROADMAP[cfg.model]}")
+        return FPN(**common).eval()
+    if cfg.model == "deeplabv3+":
+        # the reference's smp factory takes cfg["dilations"] as the rates
+        return DeepLabV3Plus(atrous_rates=tuple(cfg.dilations),
+                             **common).eval()
+    if cfg.model == "pspnet":
+        return PSPNet(**common).eval()
+    if cfg.model == "unet++":
+        return UNetPlusPlus(**common).eval()
     raise ValueError(f"unknown model {cfg.model!r}")

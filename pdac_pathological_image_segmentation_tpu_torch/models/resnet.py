@@ -5,6 +5,14 @@ names (the JAX package's ``models/resnet.py``, in NCHW).
 (resnet18/34) or Bottleneck (resnet50) stages.  The forward returns
 ``[c1, c2, c3, c4, c5]`` at strides ``[2, 4, 8, 16, 32]``.
 
+``output_stride`` (8, 16 or 32) turns the strides past it into dilations
+with smp's ``replace_strides_with_dilation`` semantics, as the JAX encoder
+does: every conv of a dilated stage, block 0 and the downsample included,
+takes stride 1 and the stage's rate, with padding ``(k // 2) · rate``.
+``depth`` stops the forward after ``c{depth}`` (smp's ``encoder_depth``):
+the later stages are still built, so their weights load and save, but
+they do not run.
+
 Dtype policy (flax's): parameters and BN statistics stay float32; every
 convolution runs in its input's dtype (the model's compute dtype), with
 the weights cast on the fly.
@@ -56,16 +64,20 @@ def _bn(channels: int) -> nn.BatchNorm2d:
 class BasicBlock(nn.Module):
     expansion = 1
 
-    def __init__(self, cin: int, channels: int, stride: int = 1) -> None:
+    def __init__(self, cin: int, channels: int, stride: int = 1,
+                 dilation: int = 1) -> None:
         super().__init__()
-        self.conv1 = Conv2d(cin, channels, 3, stride, 1, bias=False)
+        self.conv1 = Conv2d(cin, channels, 3, stride, dilation, dilation,
+                            bias=False)
         self.bn1 = _bn(channels)
-        self.conv2 = Conv2d(channels, channels, 3, 1, 1, bias=False)
+        self.conv2 = Conv2d(channels, channels, 3, 1, dilation, dilation,
+                            bias=False)
         self.bn2 = _bn(channels)
         self.downsample = None
         if stride != 1 or cin != channels:
             self.downsample = nn.Sequential(
-                Conv2d(cin, channels, 1, stride, bias=False), _bn(channels))
+                Conv2d(cin, channels, 1, stride, dilation=dilation,
+                       bias=False), _bn(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.relu(self.bn1(self.conv1(x)))
@@ -79,19 +91,22 @@ class Bottleneck(nn.Module):
 
     expansion = 4
 
-    def __init__(self, cin: int, channels: int, stride: int = 1) -> None:
+    def __init__(self, cin: int, channels: int, stride: int = 1,
+                 dilation: int = 1) -> None:
         super().__init__()
         out = channels * 4
-        self.conv1 = Conv2d(cin, channels, 1, bias=False)
+        self.conv1 = Conv2d(cin, channels, 1, dilation=dilation, bias=False)
         self.bn1 = _bn(channels)
-        self.conv2 = Conv2d(channels, channels, 3, stride, 1, bias=False)
+        self.conv2 = Conv2d(channels, channels, 3, stride, dilation, dilation,
+                            bias=False)
         self.bn2 = _bn(channels)
-        self.conv3 = Conv2d(channels, out, 1, bias=False)
+        self.conv3 = Conv2d(channels, out, 1, dilation=dilation, bias=False)
         self.bn3 = _bn(out)
         self.downsample = None
         if stride != 1 or cin != out:
             self.downsample = nn.Sequential(
-                Conv2d(cin, out, 1, stride, bias=False), _bn(out))
+                Conv2d(cin, out, 1, stride, dilation=dilation, bias=False),
+                _bn(out))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.relu(self.bn1(self.conv1(x)))
@@ -104,22 +119,35 @@ class Bottleneck(nn.Module):
 class ResNetEncoder(nn.Module):
     """ResNet feature extractor without the avgpool/fc head."""
 
-    def __init__(self, backbone: str = "resnet18") -> None:
+    def __init__(self, backbone: str = "resnet18", output_stride: int = 32,
+                 depth: int = 5) -> None:
         super().__init__()
         if backbone not in RESNET_CFGS:
             raise ValueError(f"unknown resnet {backbone!r}; supported: "
                              f"{tuple(RESNET_CFGS)}")
+        if output_stride not in (8, 16, 32):
+            raise ValueError(f"output_stride must be 8, 16 or 32, got "
+                             f"{output_stride}")
+        if not 1 <= depth <= 5:
+            raise ValueError(f"depth must be in 1..5, got {depth}")
+        self.depth = depth
         cfg = RESNET_CFGS[backbone]
         block = BasicBlock if cfg["block"] == "basic" else Bottleneck
         self.conv1 = Conv2d(3, 64, 7, 2, 3, bias=False)
         self.bn1 = _bn(64)
         cin = 64
+        current_stride, dilation = 4, 1
         for i, (ch, n_blocks) in enumerate(zip((64, 128, 256, 512),
                                                cfg["layers"])):
+            stride = 1 if i == 0 else 2
+            if stride == 2 and current_stride >= output_stride:
+                stride, dilation = 1, dilation * 2
+            elif stride == 2:
+                current_stride *= 2
             blocks = []
             for b in range(n_blocks):
-                stride = 2 if (i > 0 and b == 0) else 1
-                blocks.append(block(cin, ch, stride))
+                blocks.append(block(cin, ch, stride if b == 0 else 1,
+                                    dilation))
                 cin = ch * block.expansion
             setattr(self, f"layer{i + 1}", nn.Sequential(*blocks))
 
@@ -130,10 +158,12 @@ class ResNetEncoder(nn.Module):
         return [64, 256, 512, 1024, 2048]
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        """``[c1, …, c{depth}]``."""
         c1 = F.relu(self.bn1(self.conv1(x)))
         y = F.max_pool2d(c1, 3, 2, 1)
         feats = [c1]
-        for layer in (self.layer1, self.layer2, self.layer3, self.layer4):
+        layers = (self.layer1, self.layer2, self.layer3, self.layer4)
+        for layer in layers[:self.depth - 1]:
             y = layer(y)
             feats.append(y)
         return feats

@@ -82,9 +82,11 @@ def _adam_state_by_name(ckpt: dict, model: nn.Module,
                         optimizer: torch.optim.Optimizer) -> dict:
     """``optimizer``'s state_dict with the checkpoint's moments.  Torch
     indexes them by position in the checkpoint's own parameter list (its
-    ``model`` keys without BN buffers), which holds parameters the port
-    does not build (a reference ResUNet's ``encoder.fc``): each moment goes
-    position → name → the port's position.  The port's own
+    ``model`` keys without BN buffers), which may hold parameters the port
+    does not build (a reference ResUNet's ``encoder.fc``) and comes in
+    smp's order for a reference DeepLabV3+ or PSPNet: each moment goes
+    position → name → the port's position.  Parameters that never had a
+    gradient (PSPNet's unrun ``layer3``/``layer4``) have no moment.  The port's own
     ``param_groups`` (and learning rate) are kept."""
     ckpt_names = [k.removeprefix(_PREFIX) for k in ckpt["model"]
                   if not k.endswith(BN_BUFFERS)]

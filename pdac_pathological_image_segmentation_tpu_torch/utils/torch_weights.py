@@ -3,10 +3,13 @@
 The port's modules keep torchvision/smp/reference ``state_dict`` names, so
 a reference ``.pth`` loads with ``load_state_dict(strict=True)`` once
 :func:`drop_unbuilt_keys` has removed what the port does not build.
-:func:`fpn_state_dict_from_jax` and :func:`resunet_state_dict_from_jax`
-are the inverses of the JAX package's ``convert_smp_fpn_state_dict`` and
-``convert_resunet_state_dict``: they turn that package's parameter trees
-(as numpy arrays) into the port's ``state_dict``.
+The ``*_state_dict_from_jax`` functions turn the JAX package's parameter
+trees (as numpy arrays) into the port's ``state_dict``: the inverses of its
+``convert_smp_fpn_state_dict``, ``convert_resunet_state_dict``,
+``convert_smp_deeplabv3plus_state_dict`` and
+``convert_smp_pspnet_state_dict``, and, for U-Net++ (which has no
+reference checkpoint, so no converter there), the map from the flax tree
+to the port's mirror of it.
 """
 
 from __future__ import annotations
@@ -141,6 +144,92 @@ def resunet_state_dict_from_jax(params: Mapping[str, Any],
         sd[f"{name}.bias"] = torch.from_numpy(np.array(params[name]["bias"]))
     for name in ("conv1", "conv2", "conv3", "conv4"):
         _conv(sd, name, params[name], bias=True)
+    return sd
+
+
+def _separable(sd: dict, torch_sep: str, torch_bn: str,
+               p: Mapping[str, Any], s: Mapping[str, Any]) -> None:
+    # smp's SeparableConv2d: depthwise at .0, pointwise at .1, then the BN
+    _conv(sd, f"{torch_sep}.0", p["depthwise"])
+    _conv(sd, f"{torch_sep}.1", p["pointwise"])
+    _bn(sd, torch_bn, p["bn"], s["bn"])
+
+
+def _conv_bn(sd: dict, torch_conv: str, torch_bn: str,
+             p: Mapping[str, Any], s: Mapping[str, Any]) -> None:
+    _conv(sd, torch_conv, p["conv"])
+    _bn(sd, torch_bn, p["bn"], s["bn"])
+
+
+def deeplabv3plus_state_dict_from_jax(params: Mapping[str, Any],
+                                      batch_stats: Mapping[str, Any]
+                                      ) -> Dict[str, torch.Tensor]:
+    """The JAX DeepLabV3Plus's ``params``/``batch_stats`` → the port's
+    ``state_dict`` (smp names), the inverse of the JAX
+    ``convert_smp_deeplabv3plus_state_dict``."""
+    sd = resnet_state_dict_from_jax(params["encoder"],
+                                    batch_stats["encoder"], "encoder.")
+    pa, sa = params["aspp"], batch_stats["aspp"]
+    aspp = "decoder.aspp.0"
+    _conv_bn(sd, f"{aspp}.convs.0.0", f"{aspp}.convs.0.1",
+             pa["branch_1x1"], sa["branch_1x1"])
+    for i in (1, 2, 3):
+        _separable(sd, f"{aspp}.convs.{i}.0", f"{aspp}.convs.{i}.1",
+                   pa[f"branch_r{i - 1}"], sa[f"branch_r{i - 1}"])
+    _conv_bn(sd, f"{aspp}.convs.4.1", f"{aspp}.convs.4.2",
+             pa["branch_pool"], sa["branch_pool"])
+    _conv_bn(sd, f"{aspp}.project.0", f"{aspp}.project.1", pa["project"],
+             sa["project"])
+    _separable(sd, "decoder.aspp.1", "decoder.aspp.2", params["aspp_sep"],
+               batch_stats["aspp_sep"])
+    _conv_bn(sd, "decoder.block1.0", "decoder.block1.1",
+             params["skip_project"], batch_stats["skip_project"])
+    _separable(sd, "decoder.block2.0", "decoder.block2.1", params["fuse"],
+               batch_stats["fuse"])
+    _conv(sd, "segmentation_head.0", params["head"], bias=True)
+    return sd
+
+
+def pspnet_state_dict_from_jax(params: Mapping[str, Any],
+                               batch_stats: Mapping[str, Any]
+                               ) -> Dict[str, torch.Tensor]:
+    """The JAX PSPNet's ``params``/``batch_stats`` → the port's
+    ``state_dict`` (smp names), the inverse of the JAX
+    ``convert_smp_pspnet_state_dict``: bins (1, 2, 3, 6) are blocks 0..3,
+    the 1×1 bin a conv with a bias and no BN."""
+    sd = resnet_state_dict_from_jax(params["encoder"],
+                                    batch_stats["encoder"], "encoder.")
+    for i, size in enumerate((1, 2, 3, 6)):
+        pre = f"decoder.psp.blocks.{i}.pool.1"
+        node = params[f"psp_{size}"]
+        if size == 1:
+            _conv(sd, f"{pre}.0", node["conv"], bias=True)
+        else:
+            _conv_bn(sd, f"{pre}.0", f"{pre}.1", node,
+                     batch_stats[f"psp_{size}"])
+    _conv(sd, "decoder.conv.0", params["bottleneck_conv"])
+    _bn(sd, "decoder.conv.1", params["bottleneck_bn"],
+        batch_stats["bottleneck_bn"])
+    _conv(sd, "segmentation_head.0", params["head"], bias=True)
+    return sd
+
+
+def unetplusplus_state_dict_from_jax(params: Mapping[str, Any],
+                                     batch_stats: Mapping[str, Any]
+                                     ) -> Dict[str, torch.Tensor]:
+    """The JAX UNetPlusPlus's ``params``/``batch_stats`` → the port's
+    ``state_dict``: ``x_{i}_{j}/{conv0,bn0,conv1,bn1}`` keep their names,
+    ``head`` too, the encoder takes torchvision's."""
+    sd = resnet_state_dict_from_jax(params["encoder"],
+                                    batch_stats["encoder"], "encoder.")
+    nodes = sorted((k for k in params if k.startswith("x_")),
+                   key=lambda k: tuple(int(v) for v in k[2:].split("_"))[::-1])
+    for name in nodes:
+        p, s = params[name], batch_stats[name]
+        for i in (0, 1):
+            _conv(sd, f"{name}.conv{i}", p[f"conv{i}"])
+            _bn(sd, f"{name}.bn{i}", p[f"bn{i}"], s[f"bn{i}"])
+    _conv(sd, "head", params["head"], bias=True)
     return sd
 
 

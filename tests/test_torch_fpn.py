@@ -155,12 +155,6 @@ def test_resize_nearest_matches_jax(out):
         resize_nearest(torch.from_numpy(m), *out).numpy(), ref)
 
 
-@pytest.mark.parametrize("model_name", ["deeplabv3+", "pspnet", "unet++"])
-def test_unported_models_name_the_roadmap(model_name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(Config(model=model_name, img_size=SIZE))
-
-
 @pytest.mark.parametrize("backbone", ["mobilenet_v2", "efficientnet-b0"])
 def test_unported_backbones_name_the_roadmap(backbone):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -58,7 +58,8 @@ def test_port_modules_import_without_jax():
         "data.loader", "cli.train", "models.resunet", "ops.metrics",
         "infer.figures", "infer.evaluate", "cli.test", "ops.tissue",
         "ops.stitch", "data.tiffwriter", "data.tiffslide", "data.geojson",
-        "data.synthetic", "infer.wsi", "cli.overlay")}
+        "data.synthetic", "infer.wsi", "cli.overlay", "models.dropout",
+        "models.deeplabv3plus", "models.pspnet", "models.unetplusplus")}
     assert expected <= set(out["imported"])
     assert [m for m in out["modules"] if _forbidden(m)] == []
 
