@@ -44,13 +44,16 @@ Phases, each of which fails the run (exit code 1) on any error:
    clients and one raw-f32 request; every GroupNorm of every device batch
    must have gone through the cluster kernel, counted per shape and per
    design; then direct artifact throughput at bucket 32 and a profile of
-   one bucket-32 forward;
+   one bucket-32 forward; then the same for FPN/efficientnet-b7, whose
+   smp-layout ``.pth`` also carries the encoder's unrun
+   ``encoder._conv_head``/``encoder._bn1``;
 4b. unet serving, a main path: a seeded reference ResUNet ``.pth`` →
    ``cli.export`` with ``head_dtype: bfloat16`` → the same daemon and
    requests (no GroupNorm may run); then the JAX bench's tile→mask program
    at batch 512 (512 uint8 tiles of 512² on the card): ms by CUDA events,
    tiles/s, peak memory and a profile by kernel;
-4c. DeepLabV3+, PSPNet and UNet++ on resnet18 (bf16), a main path each:
+4c. DeepLabV3+, PSPNet and UNet++ on resnet18 and DeepLabV3+ on
+   mobilenet_v2 (bf16), a main path each:
    a seeded reference ``.pth`` in the port's names (smp's for the first
    two) → ``cli.export`` → the same daemon and requests (no GroupNorm may
    run), direct artifact calls and a profiled bucket-32 forward; then a
@@ -61,11 +64,16 @@ Phases, each of which fails the run (exit code 1) on any error:
    512²) with the epochs cut to 2 and the batch to 32, on synthetic PNG
    patches, then a rerun with 3 epochs that must resume; every train step
    must have gone through the augmentation kernel and, for FPN, every GN
-   site through the cluster forward and backward kernels;
-5c. evaluation, a main path: ``cli.test --device cuda`` on each model's
+   site through the cluster forward and backward kernels.  FPN/resnet18
+   starts from a seeded torchvision resnet18 ``.npz`` (``pretrained_path``)
+   and so do FPN/efficientnet-b7 and DeepLabV3+/mobilenet_v2 from seeded
+   efficientnet-pytorch and torchvision files with their classifier tops:
+   the trainer's encoder must equal the file's before its first step
+   (FPN/efficientnet-b7's batch 32 takes about 56 GiB);
+5c. evaluation, a main path per run: ``cli.test --device cuda`` on each
    ``best.pth`` of phase 5 (16 test patches, batch 8, no figures, so
    matplotlib is not required); the GN forward launches must be 7 x the
-   FPN eval batches, all cluster, and ``metrics.csv`` and
+   eval batches of each FPN, all cluster, and ``metrics.csv`` and
    ``threshold_sweep.csv`` whole; then each in f32 on the card and on the
    CPU, ``test_score`` within 1e-3;
 6. one train step timed at the config's batch (128), 512², bf16, input on
@@ -74,10 +82,13 @@ Phases, each of which fails the run (exit code 1) on any error:
    patches/s, peak memory, idle share and the profiler's kernels;
 6b. DeepLabV3+'s ASPP dropout at (128, 256, 32, 32) on the card: its law,
    its mask repeatable per step, and no host tensor but the seed;
-7. card vs CPU, every model: the f32 forward, and one train step (TF32
-   off) in f32 for FPN and ResUNet; in f64 for the three new models
-   (their f32 gradients round at the f32 gate's own size; the f32
-   differences are reported), DeepLabV3+ with its dropout off;
+7. card vs CPU, every model: the f32 forward (probabilities 5e-4, masks
+   99.9% equal; PSPNet/mobilenet_v2 and UNet++/efficientnet-b0 too), and
+   one train step (TF32 off) in f32 for FPN and ResUNet; in f64 for the
+   later models (their f32 gradients round at the f32 gate's own size;
+   the f32 differences are reported), DeepLabV3+ with its dropout off;
+   FPN/efficientnet-b7 in f32 at 256² (the GN kernels take no f64; each
+   f32 side against the CPU's f64 step reported);
 8. bf16 vs f32 on the card: mask agreement at 0.5 (ResUNet with its bf16
    head);
 9. whole-slide inference, last, a main path per run: ``cli.overlay --device
@@ -94,8 +105,9 @@ Phases, each of which fails the run (exit code 1) on any error:
    uploads, GN launches.  Then card vs CPU in f32 on a 1024² slide with
    and without TTA (probabilities within 5e-4, masks 99.9% equal) and
    the banded runner against the plain one within float16 rounding.
-9b. ``cli.overlay --banded`` with DeepLabV3+'s ``best.pth`` on a 2048²
-   slide: any model runs the whole-slide path.
+9b. ``cli.overlay --banded`` with DeepLabV3+'s and FPN/efficientnet-b7's
+   ``best.pth`` on a 2048² slide (7 GN launches for FPN's one batch): any
+   model runs the whole-slide path.
 
 Before the ``kernels`` line a ``{"models": ...}`` line sums up the new
 models' numbers and a ``{"wsi_40k": ...}`` line the timed slide.  The
@@ -142,6 +154,14 @@ UNET_INFER_BATCH = 512  # the JAX bench's tile->mask batch (bench.py)
 # the registry's other architectures on resnet18, after FPN and ResUNet
 NEW_MODELS = ("deeplabv3+", "pspnet", "unet++")
 MODELS = ("fpn", "unet") + NEW_MODELS
+# the other encoder families, a main path each: FPN on the widest encoder
+# the reference names (its GN sites are FPN/resnet18's), DeepLabV3+ on
+# MobileNetV2 at output stride 16 (the dilated last stage)
+B7, MNV2 = "efficientnet-b7", "mobilenet_v2"
+ENCODER_PATHS = (("fpn", B7), ("deeplabv3+", MNV2))
+# b7's card-vs-CPU train step (phase 7) runs at 256², a quarter of 512²'s
+# pixels, to keep its float64 and float32 runs on the CPU short
+B7_CPU_TILE = 256
 PALLAS = "pdac_pathological_image_segmentation_tpu/ops/pallas/group_norm.py"
 PALLAS_AUG = "pdac_pathological_image_segmentation_tpu/ops/pallas/fused_augment.py"
 # the Pallas DMA-ring kernel takes blocks with 4*H*W*C*itemsize > 15 MiB
@@ -157,6 +177,11 @@ AUG_LAUNCHES_PER_CALL = 5
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def _tag(model: str, backbone: str = "resnet18") -> str:
+    """The name of a model's run: the model alone on resnet18."""
+    return model if backbone == "resnet18" else f"{model}_{backbone}"
 
 
 def set_tf32(on: bool) -> None:
@@ -692,7 +717,42 @@ def _post(url: str, body: bytes, headers: dict):
         return resp.status, dict(resp.headers), resp.read()
 
 
+def _classifier_top(backbone: str, seed: int, smp: bool = False) -> dict:
+    """The classifier an ImageNet file of ``backbone``'s family carries
+    beside its encoder (torchvision's ``fc``/``classifier.1``,
+    efficientnet-pytorch's ``_conv_head``/``_bn1``/``_fc``), seeded; with
+    ``smp``, what smp's encoder keeps of it (EfficientNet's unrun
+    ``_conv_head`` and ``_bn1``; nothing of the others)."""
+    from pdac_pathological_image_segmentation_tpu_torch.models import (
+        efficientnet,
+    )
+
+    rng = np.random.default_rng(seed)
+
+    def arr(*shape):
+        return torch.from_numpy(rng.normal(0, 0.05, shape).astype(np.float32))
+
+    if backbone in efficientnet.VARIANTS:
+        cin = efficientnet.feature_channels(backbone)[-1]
+        c = efficientnet.round_filters(1280, efficientnet.VARIANTS[backbone][0])
+        top = {"_conv_head.weight": arr(c, cin, 1, 1), "_bn1.weight": arr(c),
+               "_bn1.bias": arr(c), "_bn1.running_mean": arr(c),
+               "_bn1.running_var": arr(c).abs() + 0.5,
+               "_bn1.num_batches_tracked": torch.tensor(0)}
+        return top if smp else dict(top, **{"_fc.weight": arr(1000, c),
+                                            "_fc.bias": arr(1000)})
+    if smp:
+        return {}
+    if backbone == "mobilenet_v2":
+        return {"classifier.1.weight": arr(1000, 1280),
+                "classifier.1.bias": arr(1000)}
+    return {"fc.weight": arr(1000, 512), "fc.bias": arr(1000)}
+
+
 def _write_reference_pth(cfg, path: Path, seed: int) -> dict:
+    """A seeded reference ``.pth`` of ``cfg``'s model in smp's layout (an
+    EfficientNet encoder with smp's unrun ``encoder._conv_head``/``_bn1``);
+    returns the port's weights."""
     from pdac_pathological_image_segmentation_tpu_torch.models import (
         build_model,
     )
@@ -701,9 +761,35 @@ def _write_reference_pth(cfg, path: Path, seed: int) -> dict:
     )
 
     sd = seeded_state_dict(build_model(cfg), seed=seed)
-    torch.save({"model": {f"module.{k}": v for k, v in sd.items()},
+    top = {f"encoder.{k}": v for k, v in
+           _classifier_top(cfg.backbone, seed, smp=True).items()}
+    torch.save({"model": {f"module.{k}": v for k, v in {**sd, **top}.items()},
                 "epoch": 0, "previous_best": 0.0}, path)
     return sd
+
+
+def _pretrained_file(tmp: Path, backbone: str, seed: int) -> tuple:
+    """A seeded ImageNet encoder file in its family's layout, classifier
+    top included: torchvision's resnet18 as the ``.npz`` that
+    ``scripts/convert_torchvision_resnet18.py`` writes, torchvision's
+    mobilenet_v2 and efficientnet-pytorch's b* as a bare ``.pth``.
+    Returns its path and the encoder's tensors."""
+    from pdac_pathological_image_segmentation_tpu_torch.models.encoders import (
+        build_encoder,
+    )
+    from pdac_pathological_image_segmentation_tpu_torch.utils.torch_weights import (
+        seeded_state_dict,
+    )
+
+    enc = seeded_state_dict(build_encoder(backbone), seed=seed)
+    full = {**enc, **_classifier_top(backbone, seed)}
+    if backbone == "resnet18":
+        path = tmp / "resnet18_imagenet.npz"
+        np.savez(path, **{k: v.numpy() for k, v in full.items()})
+    else:
+        path = tmp / f"{backbone}_imagenet.pth"
+        torch.save(full, path)
+    return path, enc
 
 
 def _export(tmp: Path, cfg_d: dict, name: str):
@@ -849,11 +935,19 @@ def _profile_by_kernel(fn) -> dict:
             if ev.device_type == DeviceType.CUDA}
 
 
-def phase_serving(tmp: Path, card: str) -> tuple:
+def phase_serving(tmp: Path, card: str, backbone: str = "resnet18") -> tuple:
+    """FPN on ``backbone``: a seeded smp reference ``.pth`` → ``cli.export``
+    → the daemon; every GN of every device batch through the cluster
+    kernel, 7 a batch, per shape (the decoder's widths do not depend on the
+    encoder).  Returns the weights, the GN launches by variant and the
+    direct calls' numbers."""
     set_tf32(False)
-    sd, artifact = _export(tmp, {"model": "fpn", "backbone": "resnet18",
+    sd, artifact = _export(tmp, {"model": "fpn", "backbone": backbone,
                                  "img_size": TILE,
-                                 "compute_dtype": "bfloat16"}, "fpn512")
+                                 "compute_dtype": "bfloat16"},
+                           f"{_tag('fpn', backbone)}512")
+    if artifact.meta.get("backbone") != backbone:
+        raise AssertionError(f"artifact metadata {artifact.meta}")
     served = _serve_http(artifact)
     stats, launches = served["stats"], served["launches"]
     by_shape, by_variant = served["by_shape"], served["by_variant"]
@@ -875,11 +969,13 @@ def phase_serving(tmp: Path, card: str) -> tuple:
         raise AssertionError(f"GN launches by shape {by_shape}, expected "
                              f"{want} over {forwards} forwards")
     _all_cluster("serving GN forward", by_variant, by_shape)
-    log(_serve_log("fpn/resnet18", served)
+    log(_serve_log(f"fpn/{backbone}", served)
         + f"; GN kernel launches {launches} = 7 x (batches + warm-ups); "
         f"forwards by bucket {per_bucket}")
-    _direct_and_profile(artifact, "fpn", card)
-    return sd, by_variant
+    direct = _direct_and_profile(artifact, f"fpn/{backbone}", card)
+    return sd, by_variant, {
+        **direct, "latency_ms_p50": served["stats"].get("latency_ms_p50"),
+        "latency_ms_p99": served["stats"].get("latency_ms_p99")}
 
 
 def _direct_and_profile(artifact, model: str, card: str) -> dict:
@@ -900,35 +996,42 @@ def _direct_and_profile(artifact, model: str, card: str) -> dict:
     x = torch.from_numpy(batch).cuda()
     step = artifact.step
     fwd_ms = cuda_ms(lambda: step(x), warmup=2, iters=10)
+    torch.cuda.reset_peak_memory_stats()
     by_name = _profile_by_kernel(lambda: step(x))
+    peak = torch.cuda.max_memory_allocated()
     total = sum(by_name.values())
     gn = sum(v for k, v in by_name.items()
              if any(p in k for p in GN_FORWARD_KERNELS))
     log(f"[profile] {model} bucket-{BUCKETS[-1]} forward: {fwd_ms:.3f} ms by "
-        f"CUDA events; profiler device time {total:.3f} ms, GroupNorm "
-        f"kernels {gn:.3f} ms ({100 * gn / total if total else 0:.1f}%)")
+        f"CUDA events; profiler device time {total:.3f} ms, idle share "
+        f"{max(0.0, 1 - total / fwd_ms):.3f}, peak memory "
+        f"{peak / 2 ** 30:.2f} GiB, GroupNorm kernels {gn:.3f} ms "
+        f"({100 * gn / total if total else 0:.1f}%)")
     for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         log(f"[profile]   {v:8.3f} ms  {k[:110]}")
     return {"tiles_per_s": tiles_per_s, "forward_ms": fwd_ms,
-            "forward_profile_ms": total}
+            "forward_profile_ms": total, "forward_peak_bytes": peak}
 
 
-def phase_model_serving(tmp: Path, card: str, model: str) -> dict:
-    """``model`` on resnet18 (bf16, 512²): a seeded reference ``.pth`` in
-    the port's names (smp's for DeepLabV3+ and PSPNet) → ``cli.export`` →
-    the daemon at buckets 1/8/32 with the same requests as FPN's; none of
+def phase_model_serving(tmp: Path, card: str, model: str,
+                        backbone: str = "resnet18") -> dict:
+    """``model`` on ``backbone`` (bf16, 512²): a seeded reference ``.pth``
+    in the port's names (smp's for DeepLabV3+ and PSPNet) → ``cli.export``
+    → the daemon at buckets 1/8/32 with the same requests as FPN's; none of
     these models has a GroupNorm, so no GN kernel may run.  Then direct
     artifact calls and the profiled forward at bucket 32."""
     set_tf32(False)
-    sd, artifact = _export(tmp, {"model": model, "backbone": "resnet18",
+    sd, artifact = _export(tmp, {"model": model, "backbone": backbone,
                                  "img_size": TILE,
-                                 "compute_dtype": "bfloat16"}, f"{model}512")
+                                 "compute_dtype": "bfloat16"},
+                           f"{_tag(model, backbone)}512")
     served = _serve_http(artifact)
     if served["launches"]:
         raise AssertionError(f"{model} serving launched GN "
                              f"{served['launches']} times")
-    log(_serve_log(f"{model}/resnet18", served) + "; no GN kernel ran")
-    return {"sd": sd, **_direct_and_profile(artifact, model, card),
+    log(_serve_log(f"{model}/{backbone}", served) + "; no GN kernel ran")
+    return {"sd": sd,
+            **_direct_and_profile(artifact, f"{model}/{backbone}", card),
             "latency_ms_p50": served["stats"].get("latency_ms_p50"),
             "latency_ms_p99": served["stats"].get("latency_ms_p99")}
 
@@ -1106,38 +1209,89 @@ def phase_data(tmp: Path) -> None:
         f"{TILE}² PNG patches in {time.perf_counter() - t0:.1f} s")
 
 
-def _train_config(tmp: Path, model: str, epochs: int) -> tuple:
-    """``configs/train_config.yaml`` for ``model`` with the smoke's cuts and
-    the synthetic splits; its path and the cuts."""
+def _train_config(tmp: Path, model: str, epochs: int,
+                  backbone: str = "resnet18", **extra) -> tuple:
+    """``configs/train_config.yaml`` for ``model`` on ``backbone`` with the
+    smoke's cuts, the synthetic splits and ``extra`` keys; its path and the
+    cuts."""
     import yaml
 
     cfg = yaml.safe_load((ROOT / "configs" / "train_config.yaml").read_text())
     cuts = {"epochs": (cfg["epochs"], epochs),
             "batch_size": (cfg["batch_size"], TRAIN_BATCH)}
     cfg.update({k: v[1] for k, v in cuts.items()})
-    cfg.update({"model": model, "train_path": str(tmp / "data" / "train"),
+    cfg.update({"model": model, "backbone": backbone,
+                "train_path": str(tmp / "data" / "train"),
                 "val_path": str(tmp / "data" / "val"),
-                "test_path": str(tmp / "data" / "test")})
-    cfg_path = tmp / f"train_{model}.yaml"
+                "test_path": str(tmp / "data" / "test"), **extra})
+    cfg_path = tmp / f"train_{_tag(model, backbone)}.yaml"
     cfg_path.write_text(yaml.safe_dump(cfg))
     return cfg_path, cfg, cuts
 
 
-def phase_training(tmp: Path, model: str = "fpn") -> dict:
+def _check_pretrained_start(cfg_path: Path, want: dict) -> int:
+    """The ``Trainer`` that ``cli.train`` builds for ``cfg_path`` holds the
+    ``pretrained_path`` file's encoder before its first step; returns the
+    tensors compared."""
+    from pdac_pathological_image_segmentation_tpu_torch.config import (
+        load_config,
+    )
+    from pdac_pathological_image_segmentation_tpu_torch.data.discovery import (
+        discover_split,
+    )
+    from pdac_pathological_image_segmentation_tpu_torch.data.loader import (
+        PatchDataset,
+    )
+    from pdac_pathological_image_segmentation_tpu_torch.train.loop import (
+        Trainer,
+    )
+
+    cfg = load_config(str(cfg_path))
+    ds = PatchDataset(*discover_split(cfg.train_path), cfg)
+    with tempfile.TemporaryDirectory() as out, \
+            contextlib.redirect_stdout(io.StringIO()):
+        enc = Trainer(cfg, out, ds, ds, device="cuda").model.encoder
+    got = enc.state_dict()
+    bad = [k for k, v in want.items()
+           if not torch.equal(got[k].cpu(), v)]
+    if bad or set(got) != set(want):
+        raise AssertionError(f"encoder before the first step differs from "
+                             f"the pretrained file at {bad[:4]}")
+    del enc, got
+    torch.cuda.empty_cache()
+    return len(want)
+
+
+def phase_training(tmp: Path, model: str = "fpn",
+                   backbone: str = "resnet18", pretrained: bool = False
+                   ) -> dict:
     """``cli.train`` for 2 epochs, then a rerun with 3 that must resume;
     every train step through the augmentation kernel and, for FPN, every
-    GN site through the cluster forward and backward kernels (ResUNet has
-    no GroupNorm: none may run)."""
-    cfg_path, cfg, cuts = _train_config(tmp, model, epochs=2)
-    log(f"[train] {model}: configs/train_config.yaml "
+    GN site through the cluster forward and backward kernels (the other
+    models have no GroupNorm: none may run).  With ``pretrained``, the
+    config's ``pretrained_path`` names a seeded ImageNet file of
+    ``backbone``'s family, whose encoder the trainer must hold before its
+    first step."""
+    tag = _tag(model, backbone)
+    extra = {}
+    if pretrained:
+        path, want = _pretrained_file(tmp, backbone, seed=12)
+        extra["pretrained_path"] = str(path)
+    cfg_path, cfg, cuts = _train_config(tmp, model, 2, backbone, **extra)
+    if pretrained:
+        n = _check_pretrained_start(cfg_path, want)
+        log(f"[train] {tag}: the trainer's encoder before its first step "
+            f"equals the pretrained file {path.name} ({n} tensors, "
+            "classifier top dropped)")
+    log(f"[train] {tag}: configs/train_config.yaml "
         f"({cfg['model']}/{cfg['backbone']}, {cfg['compute_dtype']}, "
         f"img_size {cfg['img_size']}, lr {cfg['lr']}) with the cuts "
         + ", ".join(f"{k} {a} -> {b}" for k, (a, b) in cuts.items()))
-    out = tmp / f"train_{model}_out"
+    out = tmp / f"train_{tag}_out"
     # -- the main path: launches counted from here ...
     _train_counters(reset=True)
     first, _, s1 = _run_cli_train(cfg_path, out)
-    _train_config(tmp, model, epochs=3)
+    _train_config(tmp, model, 3, backbone, **extra)
     second, printed, s2 = _run_cli_train(cfg_path, out)
     counts = _train_counters()
     # -- ... to here
@@ -1169,7 +1323,7 @@ def phase_training(tmp: Path, model: str = "fpn") -> dict:
                              f"({steps} steps, {evals} eval batches)")
     for k in ("gn_forward", "gn_backward"):
         _all_cluster(f"training {k}", counts[k][2], counts[k][1])
-    log(f"[train] {model}: 2 epochs in {s1:.1f} s, resumed for a 3rd in "
+    log(f"[train] {tag}: 2 epochs in {s1:.1f} s, resumed for a 3rd in "
         f"{s2:.1f} s; losses {[round(h['train_loss'], 4) for h in history]},"
         f" val scores {[round(h['val_score'], 4) for h in history]}; "
         f"launches: augment {got['augment']} = {steps} steps, GN backward "
@@ -1201,43 +1355,38 @@ def _run_cli_test(cfg_path: Path, pth: Path, out: Path, device: str) -> dict:
 
 
 def phase_evaluation(tmp: Path) -> dict:
-    """``cli.test --device cuda`` on every model's ``best.pth`` of the
-    training phases (bf16, the config's), then each again in f32 on the
-    card (TF32 off) and on the CPU.  Only FPN has GroupNorm sites."""
+    """``cli.test --device cuda`` on every training run's ``best.pth``
+    (bf16, the config's), then each again in f32 on the card (TF32 off)
+    and on the CPU.  Only the FPN runs have GroupNorm sites.  A main path
+    per run: the GN counters are set to 0 just before it and read just
+    after."""
     import yaml
 
-    from pdac_pathological_image_segmentation_tpu_torch.ops.group_norm import (
-        group_norm_relu,
-    )
-
     set_tf32(False)
+    runs_of = {_tag(m, b): (m, b) for m, b in
+               [(m, "resnet18") for m in MODELS] + list(ENCODER_PATHS)}
     cfgs = {}
-    for model in MODELS:
-        cfg_path, cfg, _ = _train_config(tmp, model, epochs=3)
+    for tag, (model, backbone) in runs_of.items():
+        cfg_path, cfg, _ = _train_config(tmp, model, 3, backbone)
         cfg["batch_size"] = EVAL_BATCH
         for dtype in ("bfloat16", "float32"):
-            path = tmp / f"test_{model}_{dtype}.yaml"
+            path = tmp / f"test_{tag}_{dtype}.yaml"
             path.write_text(yaml.safe_dump(dict(cfg, compute_dtype=dtype)))
-            cfgs[model, dtype] = path
-    pths = {m: tmp / f"train_{m}_out" / "pth" for m in MODELS}
-    # -- the main path: launches counted from here ...
-    group_norm_relu.launches = 0
-    group_norm_relu.launches_by_shape.clear()
-    group_norm_relu.launches_by_variant.clear()
-    runs = {m: _run_cli_test(cfgs[m, "bfloat16"], pths[m],
-                             tmp / f"test_{m}_out", "cuda")
-            for m in MODELS}
-    launches = group_norm_relu.launches
-    by_shape = dict(group_norm_relu.launches_by_shape)
-    by_variant = dict(group_norm_relu.launches_by_variant)
-    # -- ... to here
+            cfgs[tag, dtype] = path
+    pths = {t: tmp / f"train_{t}_out" / "pth" for t in runs_of}
     batches = -(-N_TEST // EVAL_BATCH)
-    want = {(EVAL_BATCH, 128, hw, hw, "bfloat16", True): k * batches
-            for hw, k in GN_SITES.items()}
-    if launches != sum(GN_SITES.values()) * batches or by_shape != want:
-        raise AssertionError(f"evaluation GN launches {launches} {by_shape},"
-                             f" expected 7 x {batches} FPN batches: {want}")
-    _all_cluster("evaluation GN forward", by_variant, by_shape)
+    runs, by_variant = {}, {}
+    for tag, (model, _) in runs_of.items():
+        # -- the main path: launches counted from here ...
+        _gn_forward_counts(reset=True)
+        runs[tag] = _run_cli_test(cfgs[tag, "bfloat16"], pths[tag],
+                                  tmp / f"test_{tag}_out", "cuda")
+        counts = _gn_forward_counts()
+        # -- ... to here
+        _check_forwards(f"cli.test {tag}", counts,
+                        {EVAL_BATCH: batches} if model == "fpn" else {})
+        runs[tag]["gn_launches"] = counts[0]
+        by_variant[tag] = counts[2]
     for m, res in runs.items():
         out = tmp / f"test_{m}_out"
         rows = (out / "metrics.csv").read_text().splitlines()
@@ -1253,10 +1402,12 @@ def phase_evaluation(tmp: Path) -> dict:
             f"{res['best_threshold']:.4f} (dice {res['best_dice']:.6f}), "
             f"metrics.csv {len(rows) - 3} samples + macro/micro, "
             f"threshold_sweep.csv 257 rows, {res['seconds']:.1f} s")
-    log(f"[test] GN forward launches {launches} = 7 x {batches} FPN eval "
-        "batches, all cluster; the other models launched none")
+    log("[test] GN forward launches " + ", ".join(
+        f"{t} {r['gn_launches']}" for t, r in runs.items())
+        + f": 7 x {batches} eval batches for each FPN, all cluster; the other "
+        "models launched none")
     # card vs CPU, f32 (comparison runs: not counted)
-    for m in MODELS:
+    for m in runs_of:
         card = _run_cli_test(cfgs[m, "float32"], pths[m],
                              tmp / f"test_{m}_card32", "cuda")
         cpu = _run_cli_test(cfgs[m, "float32"], pths[m],
@@ -1271,8 +1422,8 @@ def phase_evaluation(tmp: Path) -> dict:
             f" vs {cpu['test_score']:.6f} (|Δ| {d_score:.3g}, bound 1e-3), "
             f"test_loss |Δ| {d_loss:.3g}; CPU run {cpu['seconds']:.1f} s")
     return {"by_variant": by_variant,
-            "scores": {m: runs[m]["test_score"] for m in MODELS},
-            "seconds": {m: runs[m]["seconds"] for m in MODELS}}
+            "scores": {m: runs[m]["test_score"] for m in runs_of},
+            "seconds": {m: runs[m]["seconds"] for m in runs_of}}
 
 
 # -- phase 9: whole-slide inference ------------------------------------------
@@ -1718,7 +1869,8 @@ def _train_setup(cfg, sd: dict, device: str, dtype=None,
                                   make_objective(cfg))
 
 
-def phase_timed_step(card: str, model: str = "fpn") -> dict:
+def phase_timed_step(card: str, model: str = "fpn",
+                     backbone: str = "resnet18") -> dict:
     import yaml
 
     from pdac_pathological_image_segmentation_tpu_torch import Config
@@ -1735,7 +1887,8 @@ def phase_timed_step(card: str, model: str = "fpn") -> dict:
     set_tf32(False)
     raw = yaml.safe_load((ROOT / "configs" / "train_config.yaml").read_text())
     raw.pop("train_path"), raw.pop("val_path"), raw.pop("test_path")
-    raw["model"] = model
+    raw.update(model=model, backbone=backbone)
+    tag = _tag(model, backbone)
     cfg = Config.from_dict(raw)
     n = cfg.batch_size
     sd = seeded_state_dict(build_model(cfg), seed=7)
@@ -1756,10 +1909,10 @@ def phase_timed_step(card: str, model: str = "fpn") -> dict:
         except torch.cuda.OutOfMemoryError:
             if n == 1:
                 raise
-            log(f"[step] {model}: batch {n} does not fit in the card's "
-                f"memory; cut to {n // 2}")
-            n //= 2
-            torch.cuda.empty_cache()
+        log(f"[step] {tag}: batch {n} does not fit in the card's memory; "
+            f"cut to {n // 2}")
+        n //= 2
+        torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     iters = 8
     start = torch.cuda.Event(enable_timing=True)
@@ -1773,7 +1926,7 @@ def phase_timed_step(card: str, model: str = "fpn") -> dict:
     torch.cuda.synchronize()
     augment_launches = _train_counters()["augment"][0] - augment_before
     if augment_launches != iters:
-        raise AssertionError(f"timed {model} step: {augment_launches} "
+        raise AssertionError(f"timed {tag} step: {augment_launches} "
                              f"augmentation launches in {iters} steps")
     host_ms = (time.perf_counter() - t0) * 1e3 / iters
     ms = start.elapsed_time(end) / iters
@@ -1791,13 +1944,13 @@ def phase_timed_step(card: str, model: str = "fpn") -> dict:
     shares = {g: sum(v for k, v in by_name.items()
                      if any(p in k for p in pats))
               for g, pats in groups.items()}
-    log(f"[step] {model} train step at batch {n}, {cfg.img_size}², "
+    log(f"[step] {tag} train step at batch {n}, {cfg.img_size}², "
         f"{cfg.compute_dtype}, input on the card: {ms:.2f} ms/step by CUDA "
         f"events ({host_ms:.2f} by the host clock), {n * 1e3 / ms:.1f} "
         f"patches/s, peak memory {peak / 2 ** 30:.2f} GiB, augmentation "
         f"kernel launched {augment_launches} times in {iters} steps, on "
         f"{card}")
-    log(f"[profile] one {model} step: profiler device time {total:.2f} ms, idle "
+    log(f"[profile] one {tag} step: profiler device time {total:.2f} ms, idle "
         f"share {max(0.0, 1 - total / ms):.3f} of the timed step; "
         + ", ".join(f"{g} {v:.3f} ms ({100 * v / total if total else 0:.1f}%)"
                     for g, v in shares.items()))
@@ -1812,10 +1965,15 @@ def phase_timed_step(card: str, model: str = "fpn") -> dict:
 
 # -- phase 7: card vs CPU ---------------------------------------------------
 
-def phase_train_card_vs_cpu(model: str = "fpn") -> None:
+def phase_train_card_vs_cpu(model: str = "fpn", backbone: str = "resnet18",
+                            size: int = TILE) -> None:
     """One f32 train step (TF32 off) from the same weights, the same batch
     and the same host generator: on the CPU, on the card with cuDNN's
-    convolutions, and on the card with PyTorch's own (cuDNN off)."""
+    convolutions, and on the card with PyTorch's own (cuDNN off).  The
+    models after FPN/resnet18 and ResUNet are held in float64 instead, but
+    FPN on a new encoder: its GN kernels take f32 and bf16, so it is held
+    in f32 at FPN/resnet18's bounds, each f32 side's distance from the
+    CPU's f64 step reported beside them."""
     from pdac_pathological_image_segmentation_tpu_torch import Config
     from pdac_pathological_image_segmentation_tpu_torch.models import (
         build_model,
@@ -1828,20 +1986,23 @@ def phase_train_card_vs_cpu(model: str = "fpn") -> None:
     )
 
     set_tf32(False)
-    cfg = Config(model=model, backbone="resnet18", img_size=TILE,
+    cfg = Config(model=model, backbone=backbone, img_size=size,
                  compute_dtype="float32", lr=1e-4)
+    tag = _tag(model, backbone)
     sd = seeded_state_dict(build_model(cfg), seed=9)
     n = 2
-    images = torch.from_numpy(_tiles(n, seed=10))
-    masks = torch.from_numpy(_masks(n, seed=10))
+    images = torch.from_numpy(_tiles(n, seed=10, size=size))
+    masks = torch.from_numpy(_masks(n, seed=10, size=size))
     valid = torch.ones(n, dtype=torch.bool)
-    f64 = model in NEW_MODELS
+    # the GN kernels take f32 and bf16, as the Pallas ones do, so an FPN
+    # step has no float64 run on the card
+    f64 = (model in NEW_MODELS or backbone != "resnet18") and model != "fpn"
+    f32_runs = (("cpu", "cpu", True, None), ("cudnn", "cuda", True, None),
+                ("no_cudnn", "cuda", False, None))
     runs = ((("cpu64", "cpu", True, torch.float64),
-             ("cudnn64", "cuda", True, torch.float64),
-             ("cpu", "cpu", True, None), ("cudnn", "cuda", True, None))
-            if f64 else (("cpu", "cpu", True, None),
-                         ("cudnn", "cuda", True, None),
-                         ("no_cudnn", "cuda", False, None)))
+             ("cudnn64", "cuda", True, torch.float64)) + f32_runs[:2]
+            if f64 else f32_runs if backbone == "resnet18"
+            else (("cpu64", "cpu", True, torch.float64),) + f32_runs)
     res = {}
     for run, dev, cudnn, dtype in runs:
         with torch.backends.cudnn.flags(enabled=cudnn, allow_tf32=False):
@@ -1853,15 +2014,16 @@ def phase_train_card_vs_cpu(model: str = "fpn") -> None:
             res[run] = (float(loss), {k: p.grad.cpu().double() for k, p in
                                       net.named_parameters()
                                       if p.grad is not None})
-    if set(res["cpu"][1]) != set(res[runs[1][0]][1]):
-        raise AssertionError(f"{model}: the card and the CPU gave gradients "
+    card_run = next(run for run, dev, _, _ in runs if dev == "cuda")
+    if set(res["cpu"][1]) != set(res[card_run][1]):
+        raise AssertionError(f"{tag}: the card and the CPU gave gradients "
                              "to different parameters")
     unrun = sorted(k for k, _ in net.named_parameters()
                    if k not in res["cpu"][1])
     if unrun and not (model == "pspnet" and all(
             k.startswith(("encoder.layer3.", "encoder.layer4."))
             for k in unrun)):
-        raise AssertionError(f"{model}: no gradient for {unrun[:4]}")
+        raise AssertionError(f"{tag}: no gradient for {unrun[:4]}")
 
     def compare(run: str, rel: float, base: str = "cpu",
                 loss_tol: float = 1e-4, floor: float = 1e-4) -> str:
@@ -1895,10 +2057,10 @@ def phase_train_card_vs_cpu(model: str = "fpn") -> None:
         # norm apart in a first run, hence 1e-4 (and 1e-6 of the largest
         # for gradients that are zero but for rounding, such as the 1×1
         # bin's bias ahead of a BN)
-        log(f"[card-vs-cpu] {model}: one f64 train step, {n}x{TILE}², "
+        log(f"[card-vs-cpu] {tag}: one f64 train step, {n}x{size}², "
             f"card with cuDNN: "
             f"{compare('cudnn64', 1e-4, 'cpu64', 1e-6, floor=1e-6)}")
-        log(f"[card-vs-cpu] {model}: the same in f32, TF32 off: card vs CPU "
+        log(f"[card-vs-cpu] {tag}: the same in f32, TF32 off: card vs CPU "
             f"{compare('cudnn', 0.0)}; CPU f32 vs CPU f64 "
             f"{compare('cpu', 0.0, 'cpu64')}")
         return
@@ -1912,16 +2074,20 @@ def phase_train_card_vs_cpu(model: str = "fpn") -> None:
     # cuDNN's heuristics may pick transform-based (Winograd, FFT)
     # algorithms for the f32 data and weight gradients, whose rounding is
     # coarser: 5e-2 of the norm.  The loss within 1e-4 in both.
-    log(f"[card-vs-cpu] {model}: one f32 train step, TF32 off, {n}x{TILE}²,"
-        f" card without cuDNN: {compare('no_cudnn', 5e-3)}")
-    log(f"[card-vs-cpu] {model}: the same, card with cuDNN: "
+    if "cpu64" in res:
+        log(f"[card-vs-cpu] {tag}: CPU f32 vs CPU f64, {n}x{size}²: "
+            f"{compare('cpu', 0.0, 'cpu64')}; card f32 without cuDNN vs CPU "
+            f"f64: {compare('no_cudnn', 0.0, 'cpu64')}")
+    log(f"[card-vs-cpu] {tag}: one f32 train step, TF32 off, {n}x{size}², "
+        f"card without cuDNN: {compare('no_cudnn', 5e-3)}")
+    log(f"[card-vs-cpu] {tag}: the same, card with cuDNN: "
         f"{compare('cudnn', 5e-2)}")
 
 
 # -- phases 7 and 8 ---------------------------------------------------------
 
 def _model(sd: dict, dtype: str, device: str, model: str = "fpn",
-           head: str = "float32"):
+           head: str = "float32", backbone: str = "resnet18"):
     from pdac_pathological_image_segmentation_tpu_torch import Config
     from pdac_pathological_image_segmentation_tpu_torch.models import (
         build_model,
@@ -1931,38 +2097,45 @@ def _model(sd: dict, dtype: str, device: str, model: str = "fpn",
     )
 
     net = build_model(Config.from_dict({
-        "model": model, "backbone": "resnet18", "img_size": TILE,
+        "model": model, "backbone": backbone, "img_size": TILE,
         "compute_dtype": dtype, "head_dtype": head}))
     net.load_state_dict(sd, strict=True)
     return make_infer_step(net.to(device), TILE)
 
 
-def phase_card_vs_cpu(sd: dict, model: str = "fpn") -> None:
+def phase_card_vs_cpu(sd: dict, model: str = "fpn",
+                      backbone: str = "resnet18") -> None:
+    """The f32 serving step (TF32 off) on the card and on the CPU:
+    probabilities within 5e-4, masks at 0.5 at least 99.9% equal."""
     set_tf32(False)
+    tag = _tag(model, backbone)
     imgs = torch.from_numpy(_tiles(2, seed=4))
-    card = _model(sd, "float32", "cuda", model)(imgs.cuda()).cpu()
-    cpu = _model(sd, "float32", "cpu", model)(imgs)
+    card = _model(sd, "float32", "cuda", model,
+                  backbone=backbone)(imgs.cuda()).cpu()
+    cpu = _model(sd, "float32", "cpu", model, backbone=backbone)(imgs)
     err = float((card - cpu).abs().max())
+    agree = float(((card >= 0.5) == (cpu >= 0.5)).float().mean())
     if card.shape != (2, TILE, TILE) or not torch.isfinite(card).all() \
-            or err > 5e-4:
-        raise AssertionError(f"{model} card vs CPU: shape "
+            or err > 5e-4 or agree < 0.999:
+        raise AssertionError(f"{tag} card vs CPU: shape "
                              f"{tuple(card.shape)}, max abs err {err} "
-                             "(bound 5e-4)")
-    log(f"[card-vs-cpu] {model} forward, f32, TF32 off, 2x{TILE}²: max |Δp| "
-        f"{err:.3g} (bound 5e-4)")
+                             f"(bound 5e-4), masks equal {agree}")
+    log(f"[card-vs-cpu] {tag} forward, f32, TF32 off, 2x{TILE}²: max |Δp| "
+        f"{err:.3g} (bound 5e-4), masks equal {agree:.6f} (bound 0.999)")
 
 
 def phase_bf16_vs_f32(sd: dict, model: str = "fpn",
-                      head: str = "float32") -> None:
+                      head: str = "float32", backbone: str = "resnet18") -> None:
     set_tf32(False)
+    tag = _tag(model, backbone)
     imgs = torch.from_numpy(_tiles(8, seed=5)).cuda()
-    p16 = _model(sd, "bfloat16", "cuda", model, head)(imgs)
-    p32 = _model(sd, "float32", "cuda", model)(imgs)
+    p16 = _model(sd, "bfloat16", "cuda", model, head, backbone)(imgs)
+    p32 = _model(sd, "float32", "cuda", model, backbone=backbone)(imgs)
     agree = float(((p16 >= 0.5) == (p32 >= 0.5)).float().mean())
     if agree <= 0.98:
-        raise AssertionError(f"{model} bf16 vs f32 mask agreement {agree} "
+        raise AssertionError(f"{tag} bf16 vs f32 mask agreement {agree} "
                              "<= 0.98")
-    log(f"[bf16-vs-f32] {model} (bf16 head: {head == 'bfloat16'}): mask "
+    log(f"[bf16-vs-f32] {tag} (bf16 head: {head == 'bfloat16'}): mask "
         f"agreement at 0.5: {agree:.6f} (gate > 0.98), max |Δp| "
         f"{float((p16 - p32).abs().max()):.4f}")
 
@@ -2029,53 +2202,74 @@ def phase_aspp_dropout() -> dict:
     return {"kept_share": share, "ms": ms, "host_elements": host.largest}
 
 
-# -- phase 9b: a whole slide through DeepLabV3+ -------------------------------
+# -- phases 9b, 9c: a whole slide through DeepLabV3+ and FPN/efficientnet-b7 --
 
-DEEPLAB_SLIDE = 2048
+OVERLAY_SLIDE = 2048
 
 
-def phase_deeplab_overlay(tmp: Path) -> dict:
-    """``cli.overlay --banded --device cuda`` with DeepLabV3+'s
-    ``best.pth`` of phase 5 on a 2048² JPEG TIFF, stride 256, hann, the
-    config's batch (bf16): the map read back, the tumor fraction against
-    it, no GN launched.  A main path: the counters are set to 0 just
-    before it and read just after."""
+def phase_model_overlay(tmp: Path, model: str,
+                        backbone: str = "resnet18") -> dict:
+    """``cli.overlay --banded --device cuda`` with ``model``'s ``best.pth``
+    of phase 5 on a 2048² JPEG TIFF, stride 256, hann, the config's batch
+    (bf16): the map read back, the tumor fraction against it, and 7 GN
+    launches per tile batch for FPN, none for the others.  A main path:
+    the counters are set to 0 just before it and read just after."""
     import yaml
     from PIL import Image
 
     set_tf32(False)
-    slide = _wsi_slide(DEEPLAB_SLIDE, seed=43)
-    path = tmp / "wsi" / "slide_deeplab.tiff"
+    tag = _tag(model, backbone)
+    slide = _wsi_slide(OVERLAY_SLIDE, seed=43)
+    path = tmp / "wsi" / f"slide_{tag}.tiff"
     path.parent.mkdir(exist_ok=True)
     Image.fromarray(slide).save(path, compression="jpeg", quality=90)
-    _, cfg, _ = _train_config(tmp, "deeplabv3+", epochs=3)
-    cfg_path = tmp / "wsi" / "overlay_deeplab.yaml"
+    _, cfg, _ = _train_config(tmp, model, 3, backbone)
+    cfg_path = tmp / "wsi" / f"overlay_{tag}.yaml"
     cfg_path.write_text(yaml.safe_dump(dict(cfg, batch_size=CONFIG_BATCH)))
-    out = tmp / "wsi" / "out_deeplab"
+    out = tmp / "wsi" / f"out_{tag}"
     # -- the main path: launches counted from here ...
     _gn_forward_counts(reset=True)
     result, _, frac = _run_cli_overlay([
         "--config", str(cfg_path), "--device", "cuda", "--pth_path",
-        str(tmp / "train_deeplabv3+_out" / "pth" / "best.pth"), "--slide",
+        str(tmp / f"train_{tag}_out" / "pth" / "best.pth"), "--slide",
         str(path), "--banded", "--stride", str(WSI_STRIDE), "--blend",
         "hann", "--save_path", str(out)])
     counts = _gn_forward_counts()
     # -- ... to here
-    prob = _check_prob_map("deeplab", out / "probability_map.npy",
-                           (DEEPLAB_SLIDE, DEEPLAB_SLIDE), np.float16)
-    windows = _windows(DEEPLAB_SLIDE, WSI_STRIDE) ** 2
+    prob = _check_prob_map(tag, out / "probability_map.npy",
+                           (OVERLAY_SLIDE, OVERLAY_SLIDE), np.float16)
+    windows = _windows(OVERLAY_SLIDE, WSI_STRIDE) ** 2
+    # one band: its windows in batches of the config's size, the last padded
+    batches = -(-windows // CONFIG_BATCH)
+    _check_forwards(f"{tag} overlay", counts,
+                    {CONFIG_BATCH: batches} if model == "fpn" else {})
     high, low = float((prob >= 0.5).mean()), float((prob > 0.5).mean())
-    if counts[0] or result["n_tiles"] != windows \
+    if result["n_tiles"] != windows \
             or not low - 1e-12 <= result["tumor_fraction"] <= high + 1e-12 \
             or abs(frac - result["tumor_fraction"]) > 5e-5:
-        raise AssertionError(f"deeplab overlay: {result}, GN launches "
-                             f"{counts[0]}, map fraction [{low}, {high}]")
-    log(f"[wsi] deeplabv3+ banded: {DEEPLAB_SLIDE}² JPEG TIFF, stride "
-        f"{WSI_STRIDE}, hann, {result['n_tiles']} windows in "
+        raise AssertionError(f"{tag} overlay: {result}, map fraction "
+                             f"[{low}, {high}]")
+    log(f"[wsi] {model}/{backbone} banded: {OVERLAY_SLIDE}² JPEG TIFF, "
+        f"stride {WSI_STRIDE}, hann, {result['n_tiles']} windows in "
         f"{result['seconds']:.1f} s, tumor fraction "
         f"{result['tumor_fraction']:.6f} (printed {frac}; the float16 map "
-        f"gives [{low:.6f}, {high:.6f}]); no GN launched")
-    return {"windows": result["n_tiles"], "seconds": result["seconds"]}
+        f"gives [{low:.6f}, {high:.6f}]); GN launches {counts[0]}"
+        + (f" = 7 x {batches} batch, all cluster" if model == "fpn" else ""))
+    return {"windows": result["n_tiles"], "seconds": result["seconds"],
+            "by_variant": counts[2]}
+
+
+def _seeded(model: str, backbone: str, seed: int) -> dict:
+    from pdac_pathological_image_segmentation_tpu_torch import Config
+    from pdac_pathological_image_segmentation_tpu_torch.models import (
+        build_model,
+    )
+    from pdac_pathological_image_segmentation_tpu_torch.utils.torch_weights import (
+        seeded_state_dict,
+    )
+
+    return seeded_state_dict(build_model(Config(
+        model=model, backbone=backbone, img_size=TILE)), seed=seed)
 
 
 def main() -> int:
@@ -2089,41 +2283,64 @@ def main() -> int:
         print(f"chip_smoke: {PKG} not found beside this script",
               file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     card = phase_environment()
     phase_build()
     kernels = phase_kernels()
     kernels += phase_gn_backward_kernels()
     kernels += phase_augment_kernels()
+    enc_tags = [_tag(m, b) for m, b in ENCODER_PATHS]
+    b7_tag = _tag("fpn", B7)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         tmp = Path(tmp)
-        sd, serve_by_variant = phase_serving(tmp, card)
+        sd, serve_by_variant, _ = phase_serving(tmp, card)
+        sd_b7, serve_b7_by_variant, serve_b7 = phase_serving(tmp, card, B7)
         unet = phase_unet_serving(tmp, card)
         served = {m: phase_model_serving(tmp, card, m) for m in NEW_MODELS}
+        served[_tag("deeplabv3+", MNV2)] = phase_model_serving(
+            tmp, card, "deeplabv3+", MNV2)
+        served[b7_tag] = dict(serve_b7, sd=sd_b7)
         phase_dilations_artifact(tmp)
         phase_data(tmp)
-        train = phase_training(tmp, "fpn")
+        train = phase_training(tmp, "fpn", pretrained=True)
         train_unet = phase_training(tmp, "unet")
         train_new = {m: phase_training(tmp, m) for m in NEW_MODELS}
+        train_new.update({_tag(m, b): phase_training(tmp, m, b,
+                                                     pretrained=True)
+                          for m, b in ENCODER_PATHS})
         evaluation = phase_evaluation(tmp)
         steps = {m: phase_timed_step(card, m) for m in MODELS}
+        steps.update({_tag(m, b): phase_timed_step(card, m, b)
+                      for m, b in ENCODER_PATHS})
         dropout = phase_aspp_dropout()
         for m in MODELS:
             phase_train_card_vs_cpu(m)
+        log(f"[card-vs-cpu] {b7_tag}: the train step at {B7_CPU_TILE}², cut "
+            f"from {TILE}² to keep its CPU runs short")
+        phase_train_card_vs_cpu("fpn", B7, B7_CPU_TILE)
+        phase_train_card_vs_cpu("deeplabv3+", MNV2)
         sds = {"fpn": sd, "unet": unet["sd"],
-               **{m: served[m]["sd"] for m in NEW_MODELS}}
-        for m in MODELS:
-            phase_card_vs_cpu(sds[m], m)
-        for m in MODELS:
-            phase_bf16_vs_f32(sds[m], m,
-                              head="bfloat16" if m == "unet" else "float32")
+               **{m: served[m]["sd"] for m in NEW_MODELS + tuple(enc_tags)}}
+        runs = ([(m, "resnet18") for m in MODELS] + list(ENCODER_PATHS)
+                + [("pspnet", MNV2), ("unet++", "efficientnet-b0")])
+        sds[_tag("pspnet", MNV2)] = _seeded("pspnet", MNV2, seed=13)
+        sds[_tag("unet++", "efficientnet-b0")] = _seeded(
+            "unet++", "efficientnet-b0", seed=14)
+        for m, b in runs:
+            phase_card_vs_cpu(sds[_tag(m, b)], m, b)
+        for m, b in [(m, "resnet18") for m in MODELS] + list(ENCODER_PATHS):
+            phase_bf16_vs_f32(sds[_tag(m, b)], m,
+                              head="bfloat16" if m == "unet" else "float32",
+                              backbone=b)
         # last: its long profiled run must not disturb the phases' profiles
         wsi = phase_wsi_cli(tmp, card)
-        deeplab_wsi = phase_deeplab_overlay(tmp)
+        overlays = {"deeplabv3+": phase_model_overlay(tmp, "deeplabv3+"),
+                    b7_tag: phase_model_overlay(tmp, "fpn", B7)}
         wsi_timed = phase_wsi_timed(tmp, card)
         _add_counts(wsi, wsi_timed["by_variant"])
         phase_wsi_card_vs_cpu(tmp)
     train_runs = {"train": train, "train_unet": train_unet,
-                  **{f"train_{m}": train_new[m] for m in NEW_MODELS}}
+                  **{f"train_{m}": run for m, run in train_new.items()}}
     for row in kernels:
         # launches on the main paths, by variant and shape: 0 for rows off
         # them
@@ -2136,18 +2353,29 @@ def main() -> int:
             if row["name"] == "group_norm_relu":
                 paths = {"serve": serve_by_variant.get(key, 0),
                          "train": train["gn_forward"][2].get(key, 0),
-                         "eval": evaluation["by_variant"].get(key, 0),
-                         "wsi": wsi.get(key, 0)}
+                         "eval": evaluation["by_variant"]["fpn"].get(key, 0),
+                         "wsi": wsi.get(key, 0),
+                         f"serve_{b7_tag}": serve_b7_by_variant.get(key, 0),
+                         f"train_{b7_tag}":
+                             train_new[b7_tag]["gn_forward"][2].get(key, 0),
+                         f"eval_{b7_tag}":
+                             evaluation["by_variant"][b7_tag].get(key, 0),
+                         f"wsi_{b7_tag}":
+                             overlays[b7_tag]["by_variant"].get(key, 0)}
             else:
-                paths = {"train": train["gn_backward"][2].get(key, 0)}
+                paths = {"train": train["gn_backward"][2].get(key, 0),
+                         f"train_{b7_tag}":
+                             train_new[b7_tag]["gn_backward"][2].get(key, 0)}
         row["launches"] = sum(paths.values())
         row["launches_by_path"] = paths
     # each kernel of the paths ran on them, and on each new path
+    gn_paths = ("serve", "eval", "wsi", f"serve_{b7_tag}", f"eval_{b7_tag}",
+                f"wsi_{b7_tag}")
     for name, path in ([("fused_train_transform", p) for p in train_runs]
-                       + [("group_norm_relu", "serve"),
-                          ("group_norm_relu", "eval"),
-                          ("group_norm_relu", "wsi"),
-                          ("group_norm_relu_backward", "train")]):
+                       + [("group_norm_relu", p) for p in gn_paths]
+                       + [("group_norm_relu", f"train_{b7_tag}"),
+                          ("group_norm_relu_backward", "train"),
+                          ("group_norm_relu_backward", f"train_{b7_tag}")]):
         if not sum(r["launches_by_path"][path] for r in kernels
                    if r["name"] == name
                    and r.get("variant", "cluster") == "cluster"):
@@ -2156,9 +2384,11 @@ def main() -> int:
     print(json.dumps({"models": {
         m: {"serving": {k: v for k, v in served[m].items() if k != "sd"},
             "step": steps[m], "test_score": evaluation["scores"][m]}
-        for m in NEW_MODELS}, "steps": {m: steps[m] for m in MODELS},
-        "aspp_dropout": dropout, "deeplab_overlay": deeplab_wsi}),
-        flush=True)
+        for m in NEW_MODELS + tuple(enc_tags)},
+        "steps": steps, "aspp_dropout": dropout,
+        "overlays": {k: {f: v for f, v in o.items() if f != "by_variant"}
+                     for k, o in overlays.items()},
+        "seconds": time.perf_counter() - t_start}), flush=True)
     print(json.dumps({"wsi_40k": wsi_timed["summary"]}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

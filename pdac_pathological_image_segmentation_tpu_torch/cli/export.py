@@ -6,8 +6,10 @@
 The flags are the JAX package's ``cli/export.py``'s.  ``--pth_path`` is a
 reference-format ``.pth`` (``{"model": state_dict}`` or a bare
 ``state_dict``, ``module.`` prefixes allowed): smp names for FPN,
-DeepLabV3+ and PSPNet, the reference ResUNet's for unet (its
-``encoder.fc.*`` is dropped), or the port's own ``latest.pth``/``best.pth``
+DeepLabV3+ and PSPNet on a ResNet, ``mobilenet_v2`` or
+``efficientnet-b0``…``b7`` encoder (smp EfficientNet's unrun
+``encoder._conv_head.*``/``encoder._bn1.*`` are dropped), the reference
+ResUNet's for unet (its ``encoder.fc.*`` is dropped), or the port's own ``latest.pth``/``best.pth``
 (UNet++'s among them).  ``head_dtype`` (a config extra) and ``dilations``
 go into the artifact.  Orbax directories are the JAX package's format
 and are not read here.  The
@@ -30,8 +32,9 @@ def main(argv=None) -> dict:
     parser.add_argument("--config", type=str, required=True)
     parser.add_argument("--pth_path", required=True,
                         help="reference .pth file (smp FPN, DeepLabV3+ or "
-                        "PSPNet names, or reference ResUNet names) or the "
-                        "port's latest/best.pth")
+                        "PSPNet names on any supported backbone, or "
+                        "reference ResUNet names) or the port's "
+                        "latest/best.pth")
     parser.add_argument("--out", required=True,
                         help="output artifact path (suggest .pdacpt)")
     parser.add_argument("--tile", type=int, default=None,

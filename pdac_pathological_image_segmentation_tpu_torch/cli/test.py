@@ -6,9 +6,9 @@ device:
         [--device cpu]
 
 ``--pth_path`` is a ``.pth`` file (a reference checkpoint, smp FPN,
-DeepLabV3+ or PSPNet names or the reference ResUNet's with ``encoder.fc``,
-or the port's own) or a
-directory holding ``best.pth`` (preferred) or ``latest.pth``.  It prints
+DeepLabV3+ or PSPNet names on any backbone of ``VALID_BACKBONES``, with
+smp EfficientNet's ``encoder._conv_head``/``_bn1``, or the reference
+ResUNet's with ``encoder.fc``, or the port's own) or a directory holding ``best.pth`` (preferred) or ``latest.pth``.  It prints
 the mean Test Score / Test Loss and writes triptych figures to
 ``<save_path>/figure`` (matplotlib is needed only for them), per-sample
 metrics to ``metrics.csv`` and the 257-threshold sweep to

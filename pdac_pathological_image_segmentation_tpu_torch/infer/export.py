@@ -35,8 +35,8 @@ def export_serving_artifact(cfg: Config, state_dict: Mapping[str, torch.Tensor],
                             out_path: str, *, tile: Optional[int] = None,
                             int8: bool = False) -> int:
     """Write ``state_dict`` (the port model's names; keys of parameters the
-    model does not build, such as a reference ResUNet's ``encoder.fc``, are
-    dropped) for ``cfg`` to ``out_path``; returns the artifact size in
+    model does not build, such as a reference ResUNet's ``encoder.fc`` or
+    smp EfficientNet's ``encoder._conv_head``, are dropped) for ``cfg`` to ``out_path``; returns the artifact size in
     bytes.  The model is built and loaded strictly first, so a file that
     would not load is never written."""
     if int8:

@@ -3,7 +3,8 @@
 ``smp.DeepLabV3Plus(encoder_name=backbone, decoder_atrous_rates=dilations)``
 loads with ``strict=True``.
 
-ResNet encoder at output stride 16 (layer4's stride becomes dilation 2) →
+Encoder at output stride 16 (the last stage's stride becomes dilation 2)
+→
 ASPP over c5: a 1×1 branch, three depthwise-separable atrous branches at
 the config's rates (``decoder.aspp.0.convs.{0..3}``), and an image-pooling
 branch (mean → 1×1 conv + BN + ReLU → broadcast, ``convs.4``) →

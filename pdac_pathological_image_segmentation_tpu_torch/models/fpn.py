@@ -1,7 +1,7 @@
 """FPN segmentation model with smp's ``state_dict`` names (the JAX
 package's ``models/fpn.py``, in NCHW).
 
-ResNet encoder → top-down pyramid (256-channel 1×1 laterals, nearest 2×
+Encoder (``models/encoders.py``) → top-down pyramid (256-channel 1×1 laterals, nearest 2×
 upsampling) → per-level segmentation blocks (3×3 conv + GroupNorm(32) +
 ReLU, nearest 2× upsampling to stride 4) → sum → Dropout2d (a no-op in
 eval) → 1×1 head → corner-aligned bilinear upsample to ``output_size`` in

@@ -13,11 +13,12 @@ conv to 512 + BN + ReLU (``decoder.conv``) → ``Dropout2d(0.2)`` → 3×3
 head (``segmentation_head.0``) → 8× corner-aligned bilinear up in float32.
 The output is logits, NCHW.
 
-The encoder builds ``layer3``/``layer4``, because smp's ``state_dict`` and
-the reference's ``test.py`` carry them, but does not run them: they get no
-gradient, no Adam state and no BN update.  (The JAX encoder runs every
-stage, so its train step updates those two stages' BN statistics, which
-reach no output.)
+The encoder builds its stages past c3 (ResNet's ``layer3``/``layer4``,
+MobileNetV2's ``features.7``-``18``, EfficientNet's later ``_blocks``),
+because smp's ``state_dict`` and the reference's ``test.py`` carry them,
+but does not run them: they get no gradient, no Adam state and no BN
+update.  (The JAX encoder runs every stage, so its train step updates
+those stages' BN statistics, which reach no output.)
 """
 
 from __future__ import annotations

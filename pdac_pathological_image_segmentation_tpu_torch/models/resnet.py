@@ -11,7 +11,8 @@ does: every conv of a dilated stage, block 0 and the downsample included,
 takes stride 1 and the stage's rate, with padding ``(k // 2) · rate``.
 ``depth`` stops the forward after ``c{depth}`` (smp's ``encoder_depth``):
 the later stages are still built, so their weights load and save, but
-they do not run.
+they do not run.  torchvision's classifier (``fc.*``) is not built
+(:attr:`ResNetEncoder.unbuilt_keys`).
 
 Dtype policy (flax's): parameters and BN statistics stay float32; every
 convolution runs in its input's dtype (the model's compute dtype), with
@@ -59,6 +60,14 @@ class ConvTranspose2d(nn.ConvTranspose2d):
 
 def _bn(channels: int) -> nn.BatchNorm2d:
     return nn.BatchNorm2d(channels, eps=BN_EPS)
+
+
+def check_encoder_args(output_stride: int, depth: int) -> None:
+    if output_stride not in (8, 16, 32):
+        raise ValueError(f"output_stride must be 8, 16 or 32, got "
+                         f"{output_stride}")
+    if not 1 <= depth <= 5:
+        raise ValueError(f"depth must be in 1..5, got {depth}")
 
 
 class BasicBlock(nn.Module):
@@ -119,17 +128,15 @@ class Bottleneck(nn.Module):
 class ResNetEncoder(nn.Module):
     """ResNet feature extractor without the avgpool/fc head."""
 
+    unbuilt_keys = ("fc.",)
+
     def __init__(self, backbone: str = "resnet18", output_stride: int = 32,
                  depth: int = 5) -> None:
         super().__init__()
         if backbone not in RESNET_CFGS:
             raise ValueError(f"unknown resnet {backbone!r}; supported: "
                              f"{tuple(RESNET_CFGS)}")
-        if output_stride not in (8, 16, 32):
-            raise ValueError(f"output_stride must be 8, 16 or 32, got "
-                             f"{output_stride}")
-        if not 1 <= depth <= 5:
-            raise ValueError(f"depth must be in 1..5, got {depth}")
+        check_encoder_args(output_stride, depth)
         self.depth = depth
         cfg = RESNET_CFGS[backbone]
         block = BasicBlock if cfg["block"] == "basic" else Bottleneck

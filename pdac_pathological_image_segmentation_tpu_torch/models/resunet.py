@@ -18,8 +18,8 @@ The JAX package's ``ConcatConv``, ``UpConv``, ``PointwiseHead`` and
 concat is ``torch.cat`` and the head a plain 1×1 conv.
 
 A reference checkpoint also carries ``encoder.fc.*`` (torchvision keeps its
-classifier); :attr:`ResUNet.unbuilt_keys` names what this model does not
-build, and loaders drop it (``utils/torch_weights.py::drop_unbuilt_keys``).
+classifier), which the encoder does not build (its ``unbuilt_keys``);
+loaders drop it (``utils/torch_weights.py::drop_unbuilt_keys``).
 """
 
 from __future__ import annotations
@@ -39,8 +39,6 @@ from pdac_pathological_image_segmentation_tpu_torch.ops.resize import (
 
 
 class ResUNet(nn.Module):
-    unbuilt_keys = ("encoder.fc.",)
-
     def __init__(self, num_classes: int = 1, output_size: int = 512,
                  compute_dtype: torch.dtype = torch.float32,
                  head_dtype: torch.dtype = torch.float32) -> None:

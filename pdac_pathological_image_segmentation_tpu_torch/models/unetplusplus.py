@@ -1,7 +1,8 @@
-"""U-Net++ (nested U-Net) on a ResNet encoder (the JAX package's
-``models/unetplusplus.py``, in NCHW).  A framework extension: the
-reference offers no such model and no reference checkpoint exists, so its
-names mirror the flax tree: ``encoder.*`` (torchvision's),
+"""U-Net++ (nested U-Net) on any encoder of ``models/encoders.py`` (the JAX
+package's ``models/unetplusplus.py``, in NCHW).  A framework extension:
+the reference offers no such model and no reference checkpoint exists, so
+its names mirror the flax tree: ``encoder.*`` (torchvision's or
+efficientnet-pytorch's),
 ``x_{i}_{j}.{conv0,bn0,conv1,bn1}`` and ``head``.
 
 Node ``X(i, j)``, j ≥ 1, takes the dense skips ``X(i, 0..j-1)`` and, last,

@@ -83,11 +83,13 @@ def _adam_state_by_name(ckpt: dict, model: nn.Module,
     """``optimizer``'s state_dict with the checkpoint's moments.  Torch
     indexes them by position in the checkpoint's own parameter list (its
     ``model`` keys without BN buffers), which may hold parameters the port
-    does not build (a reference ResUNet's ``encoder.fc``) and comes in
+    does not build (a reference ResUNet's ``encoder.fc``, smp
+    EfficientNet's ``encoder._conv_head``/``encoder._bn1``) and comes in
     smp's order for a reference DeepLabV3+ or PSPNet: each moment goes
     position → name → the port's position.  Parameters that never had a
-    gradient (PSPNet's unrun ``layer3``/``layer4``) have no moment.  The port's own
-    ``param_groups`` (and learning rate) are kept."""
+    gradient (PSPNet's unrun stages, smp EfficientNet's head) have no
+    moment.  The port's own ``param_groups`` (and learning rate) are
+    kept."""
     ckpt_names = [k.removeprefix(_PREFIX) for k in ckpt["model"]
                   if not k.endswith(BN_BUFFERS)]
     params = dict(model.named_parameters())

@@ -8,8 +8,10 @@ and the checkpoint.  The per-step loss and score stay on the device and are
 fetched once per epoch.  ``previous_best``, the scheduler and the early
 stop are restored on resume, as in the JAX package.
 
-Not ported, each raising: ``num_devices > 1``, ``gns_every``,
-``profile_epoch``, ``pretrained_path``.
+``pretrained_path`` names an ImageNet encoder file, loaded into the seeded
+model's encoder before any resume (so a resume overrides it), as the JAX
+``Trainer`` does.  Not ported, each raising: ``num_devices > 1``,
+``gns_every``, ``profile_epoch``.
 """
 
 from __future__ import annotations
@@ -48,6 +50,9 @@ from pdac_pathological_image_segmentation_tpu_torch.train.steps import (
 from pdac_pathological_image_segmentation_tpu_torch.utils.meters import (
     EarlyStop,
 )
+from pdac_pathological_image_segmentation_tpu_torch.utils.torch_weights import (
+    load_pretrained_encoder,
+)
 
 TAGS = ("Score/Train_Score", "Loss/Train_Loss", "Score/Validation_Score",
         "Loss/Validation_Loss")
@@ -59,10 +64,6 @@ def check_supported(cfg: Config) -> None:
         raise NotImplementedError(
             f"num_devices={cfg.num_devices}: multi-device training is not "
             "ported yet (ROADMAP.md Queue 1, item 4)")
-    if cfg.pretrained_path:
-        raise NotImplementedError(
-            "pretrained_path (ImageNet encoder init) is not ported yet "
-            "(ROADMAP.md Queue 1, item 4)")
     for knob in ("gns_every", "profile_epoch"):
         if cfg.extras.get(knob):
             raise NotImplementedError(
@@ -87,7 +88,17 @@ class Trainer:
         # PRNGKey(cfg.seed), without touching the caller's global RNG
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(cfg.seed)
-            self.model = build_model(cfg).to(self.device)
+            model = build_model(cfg)
+        if cfg.pretrained_path:
+            load_pretrained_encoder(model, cfg.pretrained_path)
+        else:
+            print("note: encoder starts from random init — the reference "
+                  "always starts from ImageNet (models/resunet.py:12). "
+                  "One-time setup: MIGRATION.md 'First-run site steps' "
+                  "(download resnet18-f37072fd.pth, convert with "
+                  "scripts/convert_torchvision_resnet18.py, set "
+                  "`pretrained_path`).", flush=True)
+        self.model = model.to(self.device)
         self.optimizer = make_optimizer(self.model, cfg.lr)
         self.objective = make_objective(cfg)
         self.train_loader = PatchLoader(train_set, cfg.batch_size,

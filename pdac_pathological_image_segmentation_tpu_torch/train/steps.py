@@ -143,10 +143,15 @@ def fold_normalize_into_stem(weight: torch.Tensor) -> torch.Tensor:
 
 def make_infer_step(model: nn.Module, img_size: int, stain: str = "none"):
     """``step(images_u8) → probs`` — the tile→mask inference path (resize,
-    normalize fold, forward, sigmoid), mirroring the JAX
-    ``make_infer_step``.  The step puts the model in eval mode itself (the
-    JAX step is always ``train=False``), so a model the trainer left in
-    train mode is still normalized with its running statistics.
+    normalize, forward, sigmoid), mirroring the JAX ``make_infer_step``.
+    The step puts the model in eval mode itself (the JAX step is always
+    ``train=False``), so a model the trainer left in train mode is still
+    normalized with its running statistics.
+
+    On torchvision's 3×7×7 stem (the ResNet encoders) the normalize's scale
+    is folded into the stem weight and only the mean shift is applied to
+    the input; every other stem (MobileNetV2's, EfficientNet's) gets
+    ``eval_images`` in the compute dtype, as the JAX step does there.
 
     ``images_u8`` is a uint8 ``(N, H, W, 3)`` tensor on the model's device.
     Tiles of another size are resized to ``img_size`` (float32 bilinear,
@@ -158,17 +163,13 @@ def make_infer_step(model: nn.Module, img_size: int, stain: str = "none"):
         raise NotImplementedError(
             f"stain={stain!r} is not ported yet (ROADMAP.md Queue 1, item 4)")
     dtype = getattr(model, "compute_dtype", torch.float32)
-    stem = dict(model.named_parameters())[STEM]
-    if tuple(stem.shape[1:]) != (3, 7, 7):
-        raise ValueError(f"{STEM} has shape {tuple(stem.shape)}; the "
-                         "normalize fold needs the torchvision stem")
+    # the JAX _can_fold_stem: torchvision's 3x7x7 encoder.conv1 only
+    stem = dict(model.named_parameters()).get(STEM)
+    fold = stem is not None and tuple(stem.shape[1:]) == (3, 7, 7)
     m255 = torch.as_tensor(
         (255.0 * np.asarray(IMAGENET_MEAN)).astype(np.float32))
 
-    @torch.inference_mode()
-    def step(images: torch.Tensor) -> torch.Tensor:
-        model.eval()
-        folded = {STEM: fold_normalize_into_stem(stem)}
+    def folded_forward(images: torch.Tensor) -> torch.Tensor:
         x = images.permute(0, 3, 1, 2)
         if tuple(x.shape[-2:]) != (img_size, img_size):
             x = resize_bilinear(x.float(), img_size, img_size)
@@ -176,7 +177,14 @@ def make_infer_step(model: nn.Module, img_size: int, stain: str = "none"):
         # scale lives in the folded stem weight
         shift = m255.to(device=x.device, dtype=dtype).view(1, 3, 1, 1)
         x = x.to(dtype) - shift
-        out = functional_call(model, folded, (x.contiguous(),))
+        return functional_call(model, {STEM: fold_normalize_into_stem(stem)},
+                               (x.contiguous(),))
+
+    @torch.inference_mode()
+    def step(images: torch.Tensor) -> torch.Tensor:
+        model.eval()
+        out = (folded_forward(images) if fold
+               else model(eval_images(images, img_size, dtype)))
         if getattr(model, "num_classes", 1) > 1:
             return torch.softmax(out.float(), dim=1).permute(0, 2, 3, 1)
         return torch.sigmoid(out[:, 0].float())

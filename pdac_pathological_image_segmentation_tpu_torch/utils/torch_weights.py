@@ -1,15 +1,18 @@
-"""Weights carried across: reference checkpoints in, JAX model trees out.
+"""Weights carried across: reference checkpoints and ImageNet encoder files
+in, JAX model trees out.
 
-The port's modules keep torchvision/smp/reference ``state_dict`` names, so
-a reference ``.pth`` loads with ``load_state_dict(strict=True)`` once
-:func:`drop_unbuilt_keys` has removed what the port does not build.
-The ``*_state_dict_from_jax`` functions turn the JAX package's parameter
-trees (as numpy arrays) into the port's ``state_dict``: the inverses of its
-``convert_smp_fpn_state_dict``, ``convert_resunet_state_dict``,
-``convert_smp_deeplabv3plus_state_dict`` and
-``convert_smp_pspnet_state_dict``, and, for U-Net++ (which has no
-reference checkpoint, so no converter there), the map from the flax tree
-to the port's mirror of it.
+The port's modules keep torchvision/efficientnet-pytorch/smp/reference
+``state_dict`` names, so a reference ``.pth`` loads with
+``load_state_dict(strict=True)`` once :func:`drop_unbuilt_keys` has removed
+what the port does not build, and :func:`load_pretrained_encoder` puts an
+ImageNet encoder file into a model's encoder (the JAX package's
+``load_pretrained_encoder``).  The ``*_state_dict_from_jax`` functions turn
+the JAX package's parameter trees (as numpy arrays) into the port's
+``state_dict``: the inverses of its ``convert_smp_fpn_state_dict``,
+``convert_resunet_state_dict``, ``convert_smp_deeplabv3plus_state_dict``,
+``convert_smp_pspnet_state_dict`` and of the three encoder converters they
+dispatch to, and, for U-Net++ (which has no reference checkpoint, so no
+converter there), the map from the flax tree to the port's mirror of it.
 """
 
 from __future__ import annotations
@@ -19,6 +22,11 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
+# the first keys of a bare encoder or model state_dict, as against a
+# reference checkpoint's {"model": state_dict, ...}
+_STATE_DICT_KEYS = ("conv1", "layer", "features", "_conv_stem", "_blocks",
+                    "encoder", "decoder")
+
 
 def load_reference_state_dict(path: str) -> Dict[str, torch.Tensor]:
     """A reference checkpoint (``{"model": state_dict, ...}``, as the
@@ -26,8 +34,7 @@ def load_reference_state_dict(path: str) -> Dict[str, torch.Tensor]:
     with the DDP ``module.`` prefix stripped; tensors on the CPU."""
     obj = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(obj, Mapping) and "model" in obj and not any(
-            k.startswith(("conv1", "layer", "encoder", "decoder"))
-            for k in obj):
+            k.startswith(_STATE_DICT_KEYS) for k in obj):
         obj = obj["model"]
     return {k.replace("module.", ""): v for k, v in obj.items()
             if torch.is_tensor(v)}
@@ -104,6 +111,80 @@ def resnet_state_dict_from_jax(params: Mapping[str, Any],
     return sd
 
 
+def mobilenetv2_state_dict_from_jax(params: Mapping[str, Any],
+                                    batch_stats: Mapping[str, Any],
+                                    prefix: str = ""
+                                    ) -> Dict[str, torch.Tensor]:
+    """The JAX ``MobileNetV2Encoder`` trees → torchvision names, the inverse
+    of the JAX ``convert_mobilenetv2_state_dict``: ``features_i`` →
+    ``features.i``; an expand-ratio-1 block's depthwise conv at
+    ``conv.0``, its projection at ``conv.1``/``conv.2``, an expand-ratio-6
+    block's expand at ``conv.0``, depthwise at ``conv.1``, projection at
+    ``conv.2``/``conv.3``.  Depthwise kernels go (k, k, 1, C) → (C, 1, k,
+    k)."""
+    sd: Dict[str, torch.Tensor] = {}
+    n = len([k for k in params if k.startswith("features_")])
+    for i in range(n):
+        p, s = params[f"features_{i}"], batch_stats[f"features_{i}"]
+        pre = f"{prefix}features.{i}"
+        if "conv" in p:  # the stem and the last 1x1 conv
+            _conv_bn(sd, f"{pre}.0", f"{pre}.1", p, s)
+            continue
+        convs = (["expand"] if "expand" in p else []) + ["depthwise"]
+        for j, name in enumerate(convs):
+            _conv_bn(sd, f"{pre}.conv.{j}.0", f"{pre}.conv.{j}.1", p[name],
+                     s[name])
+        j = len(convs)
+        _conv_bn(sd, f"{pre}.conv.{j}", f"{pre}.conv.{j + 1}", p["project"],
+                 s["project"])
+    return sd
+
+
+def efficientnet_state_dict_from_jax(params: Mapping[str, Any],
+                                     batch_stats: Mapping[str, Any],
+                                     prefix: str = ""
+                                     ) -> Dict[str, torch.Tensor]:
+    """The JAX ``EfficientNetEncoder`` trees → efficientnet-pytorch names,
+    the inverse of the JAX ``convert_efficientnet_state_dict``:
+    ``stem_conv``/``stem_bn`` → ``_conv_stem``/``_bn0``, ``blocks_N`` →
+    ``_blocks.N`` (``expand_*`` → ``_expand_conv``/``_bn0``,
+    ``depthwise_*`` → ``_depthwise_conv``/``_bn1``, ``se_*`` with their
+    biases, ``project_*`` → ``_project_conv``/``_bn2``)."""
+    sd: Dict[str, torch.Tensor] = {}
+    _conv(sd, f"{prefix}_conv_stem", params["stem_conv"])
+    _bn(sd, f"{prefix}_bn0", params["stem_bn"]["bn"],
+        batch_stats["stem_bn"]["bn"])
+    n = len([k for k in params if k.startswith("blocks_")])
+    for i in range(n):
+        p, s = params[f"blocks_{i}"], batch_stats[f"blocks_{i}"]
+        pre = f"{prefix}_blocks.{i}"
+        for conv, bn, name in (("_expand_conv", "_bn0", "expand"),
+                               ("_depthwise_conv", "_bn1", "depthwise"),
+                               ("_project_conv", "_bn2", "project")):
+            if f"{name}_conv" in p:
+                _conv(sd, f"{pre}.{conv}", p[f"{name}_conv"])
+                _bn(sd, f"{pre}.{bn}", p[f"{name}_bn"]["bn"],
+                    s[f"{name}_bn"]["bn"])
+        for name in ("_se_reduce", "_se_expand"):
+            _conv(sd, f"{pre}.{name}", p[name[1:]], bias=True)
+    return sd
+
+
+def encoder_state_dict_from_jax(params: Mapping[str, Any],
+                                batch_stats: Mapping[str, Any],
+                                prefix: str = "encoder."
+                                ) -> Dict[str, torch.Tensor]:
+    """A JAX encoder's trees → the port's names, by the tree's own layout:
+    ResNet (``conv1``), MobileNetV2 (``features_0``) or EfficientNet
+    (``stem_conv``) — the inverse of the JAX
+    ``convert_encoder_state_dict``."""
+    if "features_0" in params:
+        return mobilenetv2_state_dict_from_jax(params, batch_stats, prefix)
+    if "stem_conv" in params:
+        return efficientnet_state_dict_from_jax(params, batch_stats, prefix)
+    return resnet_state_dict_from_jax(params, batch_stats, prefix)
+
+
 def fpn_state_dict_from_jax(params: Mapping[str, Any],
                             batch_stats: Mapping[str, Any]
                             ) -> Dict[str, torch.Tensor]:
@@ -111,8 +192,7 @@ def fpn_state_dict_from_jax(params: Mapping[str, Any],
     FPN's ``state_dict`` (smp names).  Conv kernels go HWIO → OIHW; BN
     ``scale/bias/mean/var`` become ``weight/bias/running_mean/running_var``
     with ``num_batches_tracked`` 0."""
-    sd = resnet_state_dict_from_jax(params["encoder"],
-                                    batch_stats["encoder"], "encoder.")
+    sd = encoder_state_dict_from_jax(params["encoder"], batch_stats["encoder"])
     _conv(sd, "decoder.p5", params["lateral5"], bias=True)
     for lvl in (4, 3, 2):
         _conv(sd, f"decoder.p{lvl}.skip_conv", params[f"lateral{lvl}"],
@@ -167,8 +247,7 @@ def deeplabv3plus_state_dict_from_jax(params: Mapping[str, Any],
     """The JAX DeepLabV3Plus's ``params``/``batch_stats`` → the port's
     ``state_dict`` (smp names), the inverse of the JAX
     ``convert_smp_deeplabv3plus_state_dict``."""
-    sd = resnet_state_dict_from_jax(params["encoder"],
-                                    batch_stats["encoder"], "encoder.")
+    sd = encoder_state_dict_from_jax(params["encoder"], batch_stats["encoder"])
     pa, sa = params["aspp"], batch_stats["aspp"]
     aspp = "decoder.aspp.0"
     _conv_bn(sd, f"{aspp}.convs.0.0", f"{aspp}.convs.0.1",
@@ -197,8 +276,7 @@ def pspnet_state_dict_from_jax(params: Mapping[str, Any],
     ``state_dict`` (smp names), the inverse of the JAX
     ``convert_smp_pspnet_state_dict``: bins (1, 2, 3, 6) are blocks 0..3,
     the 1×1 bin a conv with a bias and no BN."""
-    sd = resnet_state_dict_from_jax(params["encoder"],
-                                    batch_stats["encoder"], "encoder.")
+    sd = encoder_state_dict_from_jax(params["encoder"], batch_stats["encoder"])
     for i, size in enumerate((1, 2, 3, 6)):
         pre = f"decoder.psp.blocks.{i}.pool.1"
         node = params[f"psp_{size}"]
@@ -219,9 +297,8 @@ def unetplusplus_state_dict_from_jax(params: Mapping[str, Any],
                                      ) -> Dict[str, torch.Tensor]:
     """The JAX UNetPlusPlus's ``params``/``batch_stats`` → the port's
     ``state_dict``: ``x_{i}_{j}/{conv0,bn0,conv1,bn1}`` keep their names,
-    ``head`` too, the encoder takes torchvision's."""
-    sd = resnet_state_dict_from_jax(params["encoder"],
-                                    batch_stats["encoder"], "encoder.")
+    ``head`` too, the encoder takes torchvision's or efficientnet-pytorch's."""
+    sd = encoder_state_dict_from_jax(params["encoder"], batch_stats["encoder"])
     nodes = sorted((k for k in params if k.startswith("x_")),
                    key=lambda k: tuple(int(v) for v in k[2:].split("_"))[::-1])
     for name in nodes:
@@ -237,7 +314,47 @@ def drop_unbuilt_keys(model: torch.nn.Module,
                       sd: Mapping[str, torch.Tensor]
                       ) -> Dict[str, torch.Tensor]:
     """``sd`` without the keys of reference parameters that ``model`` does
-    not build (its class's ``unbuilt_keys`` prefixes; ResUNet's
-    ``encoder.fc.*``), so that the rest loads with ``strict=True``."""
-    unbuilt = tuple(getattr(model, "unbuilt_keys", ()))
+    not build: its encoder's classifier (the encoder's ``unbuilt_keys``
+    under ``encoder.``: a reference ResUNet's ``encoder.fc.*``, smp
+    EfficientNet's ``encoder._conv_head.*``/``encoder._bn1.*``, which are
+    not the blocks' own ``encoder._blocks.N._bn1.*``), so that the rest
+    loads with ``strict=True``."""
+    unbuilt = tuple(f"encoder.{k}" for k in model.encoder.unbuilt_keys)
     return {k: v for k, v in sd.items() if not k.startswith(unbuilt)}
+
+
+def load_pretrained_encoder(model: torch.nn.Module, path: str) -> None:
+    """Load an ImageNet encoder file into ``model.encoder`` (the JAX
+    package's ``load_pretrained_encoder``): an ``.npz`` with torch key
+    names (what ``scripts/convert_torchvision_resnet18.py`` writes), a bare
+    ``.pth`` state_dict (torchvision's resnet or mobilenet_v2,
+    efficientnet-pytorch's), or a reference checkpoint, whose
+    ``encoder.*`` keys are taken.  ``module.`` prefixes are stripped and
+    the classifier top (the encoder's ``unbuilt_keys``: ``fc.``,
+    ``classifier.``, ``_conv_head.``, ``_bn1.``, ``_fc.``) is dropped.
+    Every encoder weight and BN statistic must be in the file and nothing
+    else may be (``num_batches_tracked`` may be absent): otherwise a
+    ``KeyError`` names what is wrong, as the JAX graft's strict coverage
+    check does."""
+    if path.endswith(".npz"):
+        with np.load(path) as z:
+            sd = {k.replace("module.", ""): torch.from_numpy(z[k])
+                  for k in z.files}
+    else:
+        sd = load_reference_state_dict(path)
+    if any(k.startswith("encoder.") for k in sd):
+        sd = {k[len("encoder."):]: v for k, v in sd.items()
+              if k.startswith("encoder.")}
+    encoder = model.encoder
+    sd = {k: v for k, v in sd.items()
+          if not k.startswith(encoder.unbuilt_keys)}
+    own = encoder.state_dict()
+    missing = [k for k in own
+               if k not in sd and not k.endswith("num_batches_tracked")]
+    unexpected = [k for k in sd if k not in own]
+    if missing or unexpected:
+        raise KeyError(
+            f"{path} does not fit the {type(encoder).__name__}: "
+            f"{len(missing)} encoder tensors missing {missing[:4]}, "
+            f"{len(unexpected)} unknown {unexpected[:4]}")
+    encoder.load_state_dict(sd, strict=False)

@@ -155,12 +155,6 @@ def test_resize_nearest_matches_jax(out):
         resize_nearest(torch.from_numpy(m), *out).numpy(), ref)
 
 
-@pytest.mark.parametrize("backbone", ["mobilenet_v2", "efficientnet-b0"])
-def test_unported_backbones_name_the_roadmap(backbone):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(Config(model="fpn", backbone=backbone, img_size=SIZE))
-
-
 @pytest.mark.parametrize("backbone,channels", [
     ("resnet34", [64, 64, 128, 256, 512]),
     ("resnet50", [64, 256, 512, 1024, 2048]),

@@ -59,7 +59,8 @@ def test_port_modules_import_without_jax():
         "infer.figures", "infer.evaluate", "cli.test", "ops.tissue",
         "ops.stitch", "data.tiffwriter", "data.tiffslide", "data.geojson",
         "data.synthetic", "infer.wsi", "cli.overlay", "models.dropout",
-        "models.deeplabv3plus", "models.pspnet", "models.unetplusplus")}
+        "models.deeplabv3plus", "models.pspnet", "models.unetplusplus",
+        "models.mobilenetv2", "models.efficientnet")}
     assert expected <= set(out["imported"])
     assert [m for m in out["modules"] if _forbidden(m)] == []
 

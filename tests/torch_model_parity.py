@@ -1,6 +1,7 @@
 """Shared checks of a port model against its JAX twin, for
-``tests/test_torch_deeplab.py``, ``test_torch_pspnet.py`` and
-``test_torch_unetplusplus.py`` (not a test module itself).
+``tests/test_torch_deeplab.py``, ``test_torch_pspnet.py``,
+``test_torch_unetplusplus.py``, ``test_torch_mobilenetv2.py`` and
+``test_torch_efficientnet.py`` (not a test module itself).
 
 Everything runs on the CPU in f32 at 64²: one seeded ``state_dict`` in the
 port's names feeds both sides (the JAX side through its converter), and
@@ -35,7 +36,8 @@ from pdac_pathological_image_segmentation_tpu.train.objective import (
     make_objective as jax_make_objective,
 )
 from pdac_pathological_image_segmentation_tpu.train.state import (
-    create_train_state,
+    TrainState,
+    make_optimizer as jax_make_optimizer,
 )
 from pdac_pathological_image_segmentation_tpu.train.steps import (
     make_train_step as jax_make_train_step,
@@ -107,11 +109,31 @@ def flax_dropout_off():
         yield
 
 
+def zero_variables(jmodel, size: int = SIZE) -> dict:
+    """``jmodel``'s variables as zeros, shaped by ``jax.eval_shape`` of its
+    init: nothing is compiled (a compiled flax init of an EfficientNet
+    model takes about 10 s here, an eager one 30 s).  The converters
+    overwrite every leaf, so a leaf they miss stays zero and shows."""
+    shapes = jax.eval_shape(lambda: jmodel.init(
+        {"params": jax.random.PRNGKey(0)}, jnp.zeros((1, size, size, 3)),
+        train=False))
+    return jax.tree_util.tree_map(lambda a: np.zeros(a.shape, a.dtype),
+                                  shapes)
+
+
+def jax_train_state(jcfg, jmodel):
+    """The JAX ``create_train_state``'s state on :func:`zero_variables`."""
+    variables = zero_variables(jmodel)
+    tx = jax_make_optimizer(jcfg.lr)
+    return TrainState(step=jnp.zeros((), jnp.int32),
+                      params=variables["params"],
+                      batch_stats=variables.get("batch_stats", {}),
+                      opt_state=tx.init(variables["params"]), tx=tx)
+
+
 def jax_variables(jmodel, sd, convert):
     """``(params, batch_stats)`` of ``jmodel`` holding the port's ``sd``."""
-    variables = jax.jit(jmodel.init, static_argnames=("train",))(
-        {"params": jax.random.PRNGKey(0)}, jnp.zeros((1, SIZE, SIZE, 3)),
-        train=False)
+    variables = zero_variables(jmodel)
     return convert({k: v.numpy() for k, v in sd.items()},
                    variables["params"], variables["batch_stats"])
 
@@ -136,6 +158,23 @@ def assert_forward_matches(model, jmodel, variables, train: bool,
     np.testing.assert_allclose(ours, ref, rtol=LOGIT_RTOL, atol=LOGIT_ATOL)
 
 
+def far_from_unit_stats(sd, seed: int) -> dict:
+    """``sd`` with every BatchNorm's running variance drawn from U(0.01,
+    0.1) and its scale multiplied by the variance's square root, so that
+    activations keep their size while the BN eps shows: 1e-3 against 1e-5
+    moves a normalized value by up to 5%."""
+    rng = np.random.default_rng(seed)
+    out = dict(sd)
+    for k in sd:
+        if k.endswith(".running_var"):
+            var = rng.uniform(0.01, 0.1, tuple(sd[k].shape)).astype(np.float32)
+            bn = k[:-len("running_var")]
+            out[k] = torch.from_numpy(var)
+            out[bn + "weight"] = sd[bn + "weight"] * torch.from_numpy(
+                np.sqrt(var))
+    return out
+
+
 def assert_round_trip(sd, variables, from_jax) -> None:
     back = from_jax(*(np_tree(t) for t in variables))
     assert sorted(back) == sorted(sd)
@@ -152,12 +191,13 @@ def _batch(seed, n=4):
 
 
 def one_step(model_name, model, sd, convert, from_jax,
-             jax_grads: bool = True) -> dict:
+             jax_grads: bool = True, backbone: str = "resnet18") -> dict:
     """One train step of the port ``model`` (holding ``sd``, dropout off)
-    and of the JAX model with dropout off: the loss, score, gradients,
-    parameters after Adam and BN statistics of both, in the port's names.
-    Parameters that get no gradient on the port are left out of
-    ``grads``; ``jax_grads=False`` skips ``jax.grad`` (``jgrads`` None)."""
+    and of the JAX model on ``backbone`` with dropout off: the loss, score,
+    gradients, parameters after Adam and BN statistics of both, in the
+    port's names.  Parameters that get no gradient on the port are left
+    out of ``grads``; ``jax_grads=False`` skips ``jax.grad`` (``jgrads``
+    None)."""
     images, masks, valid = _batch(0)
     opt = make_optimizer(model, LR)
     step = make_train_step(model, opt, SIZE,
@@ -168,10 +208,10 @@ def one_step(model_name, model, sd, convert, from_jax,
     grads = {k: p.grad.clone() for k, p in model.named_parameters()
              if p.grad is not None}
 
-    jcfg = jax_cfg(model_name)
+    jcfg = jax_cfg(model_name, backbone=backbone)
     with flax_dropout_off():
         jmodel = jax_build_model(jcfg)
-        state = create_train_state(jcfg, jmodel, jax.random.PRNGKey(0))
+        state = jax_train_state(jcfg, jmodel)
         params, batch_stats = convert(
             {k: v.numpy() for k, v in sd.items()}, state.params,
             state.batch_stats)
@@ -224,10 +264,16 @@ def assert_step_gradients(step) -> None:
         assert g.abs().sum() > 0, k
 
 
-def assert_step_adam(step, clear_above: float = 1e-5) -> None:
+def assert_step_adam(step, clear_above: float = 1e-5,
+                     both_sides: bool = False) -> None:
     """Every parameter within ``2·lr`` after Adam, and within 1e-6 where
     the gradient is clearly nonzero (``|g| > clear_above``: JAX's gradient,
-    or the port's where ``step`` has no JAX gradients)."""
+    or the port's where ``step`` has no JAX gradients).  With
+    ``both_sides``, where both sides' f32 gradients are clearly nonzero
+    and have one sign: Adam's first step is ``lr·g/(|g| + eps)``, so there
+    the two steps differ by less than ``lr·eps/clear_above``, while an f32
+    rounding that shrinks a gradient towards 0 or flips its sign moves
+    the step with it, which says nothing of Adam."""
     model, jparams = step["model"], step["jparams"]
     grads = step["jgrads"] or {k: g for k, g in step["grads"].items()}
     state = model.state_dict()
@@ -235,6 +281,10 @@ def assert_step_adam(step, clear_above: float = 1e-5) -> None:
         got, want = state[k].numpy(), jparams[k].numpy()
         np.testing.assert_allclose(got, want, rtol=0, atol=2 * LR, err_msg=k)
         clear = np.abs(grads[k].numpy()) > clear_above
+        if both_sides:
+            ours = step["grads"][k].numpy()
+            clear &= (np.abs(ours) > clear_above) & (
+                np.sign(grads[k].numpy()) == np.sign(ours))
         np.testing.assert_allclose(got[clear], want[clear], rtol=0,
                                    atol=1e-6, err_msg=k)
 
@@ -258,7 +308,8 @@ def batchnorm_inputs(model) -> dict:
 def assert_step_batchnorm(step) -> list:
     """Running means within 1e-5; running variances within 1e-4 relative
     once torch's unbiased batch variance is brought back to flax's biased
-    one.  Returns the names of the BatchNorms that ran."""
+    one (through each BatchNorm's own momentum).  Returns the names of the
+    BatchNorms that ran."""
     model, sd, jparams = step["model"], step["sd"], step["jparams"]
     state = model.state_dict()
     feats = batchnorm_inputs(model)
@@ -267,26 +318,29 @@ def assert_step_batchnorm(step) -> list:
         np.testing.assert_allclose(state[f"{name}.running_mean"].numpy(),
                                    jparams[f"{name}.running_mean"].numpy(),
                                    rtol=0, atol=1e-5, err_msg=name)
+        m = model.get_submodule(name).momentum
         old = sd[f"{name}.running_var"].numpy()
-        b_torch = (state[f"{name}.running_var"].numpy() - 0.9 * old) / 0.1
-        b_flax = (jparams[f"{name}.running_var"].numpy() - 0.9 * old) / 0.1
+        b_torch = (state[f"{name}.running_var"].numpy() - (1 - m) * old) / m
+        b_flax = (jparams[f"{name}.running_var"].numpy() - (1 - m) * old) / m
         np.testing.assert_allclose(b_torch * (n - 1) / n, b_flax, rtol=1e-4,
                                    atol=1e-5, err_msg=name)
     return sorted(feats)
 
 
-def reference_checkpoint(sd, seed: int = 5) -> dict:
+def reference_checkpoint(sd, seed: int = 5, cold=None) -> dict:
     """A reference ``latest.pth`` of ``sd``: DDP ``module.`` keys and Adam
     moments indexed by position in the ``state_dict`` without BN buffers,
-    as ``train_worker.py`` saves it.  Keys whose name starts with
-    ``encoder.layer3``/``encoder.layer4`` get no moments when ``sd`` is a
-    PSPNet's (they never had a gradient)."""
+    as ``train_worker.py`` saves it.  Parameters whose name starts with
+    one of ``cold`` never had a gradient and get no moments; by default
+    ``encoder.layer3``/``encoder.layer4`` when ``sd`` is a PSPNet's."""
     rng = np.random.default_rng(seed)
     names = [k for k in sd if not k.endswith(BN_BUFFERS)]
-    unrun = "decoder.psp.blocks.0.pool.1.0.bias" in sd
+    if cold is None:
+        cold = (("encoder.layer3", "encoder.layer4")
+                if "decoder.psp.blocks.0.pool.1.0.bias" in sd else ())
     state = {}
     for i, k in enumerate(names):
-        if unrun and k.startswith(("encoder.layer3", "encoder.layer4")):
+        if k.startswith(tuple(cold)):
             continue
         shape = tuple(sd[k].shape)
         state[i] = {
@@ -318,19 +372,22 @@ def adam_moments_in_port_names(state, from_jax) -> tuple:
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_template(model_name):
-    """A JAX train state of ``model_name`` for the converters to fill."""
-    jcfg = jax_cfg(model_name)
-    return create_train_state(jcfg, jax_build_model(jcfg),
-                              jax.random.PRNGKey(0))
+def _jax_template(model_name, backbone="resnet18"):
+    """A JAX train state of ``model_name`` on ``backbone`` for the
+    converters to fill."""
+    jcfg = jax_cfg(model_name, backbone=backbone)
+    return jax_train_state(jcfg, jax_build_model(jcfg))
 
 
-def assert_reference_resume(sd, tmp_path, model_name, from_jax):
-    """Resume the port from a reference ``latest.pth`` of ``sd`` with Adam
-    moments: the weights load strictly, each moment lands on the parameter
-    whose name held it, as the JAX ``load_reference_checkpoint_full``
-    places it (bit-equal once mapped back), the port keeps its own
-    learning rate.  Returns the optimizer."""
+def assert_reference_resume(sd, tmp_path, model_name, from_jax,
+                            backbone: str = "resnet18", cold=None):
+    """Resume the port from a reference ``latest.pth`` of ``sd`` (which may
+    hold parameters the port does not build) with Adam moments on all but
+    the ``cold`` parameters: the weights load strictly, each moment lands
+    on the parameter whose name held it, as the JAX
+    ``load_reference_checkpoint_full`` places it (bit-equal once mapped
+    back), the port keeps its own learning rate.  Returns the
+    optimizer."""
     from pdac_pathological_image_segmentation_tpu.utils.torch_weights import (
         load_reference_checkpoint_full,
     )
@@ -341,23 +398,24 @@ def assert_reference_resume(sd, tmp_path, model_name, from_jax):
         restore_checkpoint,
     )
 
-    ckpt = reference_checkpoint(sd)
+    ckpt = reference_checkpoint(sd, cold=cold)
     torch.save(ckpt, tmp_path / "latest.pth")
-    model = build_model(port_cfg(model_name))
+    model = build_model(port_cfg(model_name, backbone=backbone))
     opt = make_optimizer(model, LR)
     meta = restore_checkpoint(str(tmp_path), model, opt)
     assert meta["epoch"] == 6 and opt.param_groups[0]["lr"] == LR
     for k, v in model.state_dict().items():
         assert torch.equal(v, sd[k]), k
     state, _ = load_reference_checkpoint_full(
-        str(tmp_path / "latest.pth"), _jax_template(model_name),
+        str(tmp_path / "latest.pth"), _jax_template(model_name, backbone),
         model_name=model_name)
     mu, nu, count = adam_moments_in_port_names(state, from_jax)
     ours = opt.state_dict()["state"]
     names = parameter_names(model)
-    held = {int(i) for i in ckpt["optimizer"]["state"]}
-    assert sorted(ours) == sorted(held) and count == 7
-    for i in held:
+    ckpt_names = [k for k in sd if not k.endswith(BN_BUFFERS)]
+    held = sorted(ckpt_names[int(i)] for i in ckpt["optimizer"]["state"])
+    assert sorted(names[i] for i in ours) == held and count == 7
+    for i in ours:
         name = names[i]
         assert torch.equal(ours[i]["exp_avg"], mu[name]), name
         assert torch.equal(ours[i]["exp_avg_sq"], nu[name]), name
@@ -365,7 +423,8 @@ def assert_reference_resume(sd, tmp_path, model_name, from_jax):
 
 
 def assert_port_checkpoint_loads_into_jax(step, tmp_path, model_name,
-                                          from_jax):
+                                          from_jax,
+                                          backbone: str = "resnet18"):
     """The port's ``latest.pth`` after one train step: the JAX
     ``load_reference_checkpoint_full`` reads it, with the port's weights,
     BN statistics and Adam moments bit-equal once mapped back (zeros where
@@ -385,7 +444,7 @@ def assert_port_checkpoint_loads_into_jax(step, tmp_path, model_name,
                     {"lr": LR, "best": 0.1, "num_bad_epochs": 0},
                     EarlyStop().state_dict(), is_best=False)
     state, meta = load_reference_checkpoint_full(
-        str(tmp_path / "latest.pth"), _jax_template(model_name),
+        str(tmp_path / "latest.pth"), _jax_template(model_name, backbone),
         model_name=model_name)
     assert meta["epoch"] == 0
     back = from_jax(np_tree(state.params), np_tree(state.batch_stats))
@@ -403,11 +462,14 @@ def assert_port_checkpoint_loads_into_jax(step, tmp_path, model_name,
             assert not mu[name].any() and not nu[name].any(), name
 
 
-def assert_cli_train_and_resume(model_name, tmp_path, capsys) -> dict:
-    """``cli.train --device cpu`` with ``model: model_name`` (bf16, 64²,
-    batch 4, 8 + 4 synthetic patches): two finite epochs, both
-    checkpoints, then a rerun with three epochs that resumes after the
-    second.  Returns the first run's result."""
+def assert_cli_train_and_resume(model_name, tmp_path, capsys,
+                                backbone: str = "resnet18",
+                                **extra) -> dict:
+    """``cli.train --device cpu`` with ``model: model_name`` on
+    ``backbone`` (bf16, 64², batch 4, 8 + 4 synthetic patches, ``extra``
+    config keys): two finite epochs, both checkpoints, then a rerun with
+    three epochs that resumes after the second.  Returns the first run's
+    result."""
     import yaml
 
     from pdac_pathological_image_segmentation_tpu.data.synthetic import (
@@ -428,9 +490,9 @@ def assert_cli_train_and_resume(model_name, tmp_path, capsys) -> dict:
         cfg_path.write_text(yaml.safe_dump({
             "train_path": str(tmp_path / "train"),
             "val_path": str(tmp_path / "val"), "model": model_name,
-            "backbone": "resnet18", "img_size": SIZE, "batch_size": 4,
+            "backbone": backbone, "img_size": SIZE, "batch_size": 4,
             "epochs": epochs, "lr": LR, "seed": 41, "num_worker": 2,
-            "compute_dtype": "bfloat16"}))
+            "compute_dtype": "bfloat16", **extra}))
         results.append(cli_train.main(argv))
     assert [h["epoch"] for h in results[0]["history"]] == [0, 1]
     assert [h["epoch"] for h in results[1]["history"]] == [2]
