@@ -18,8 +18,9 @@ Phases, each of which fails the run (exit code 1) on any error:
 
    * ``group_norm_relu`` at the seven GroupNorm sites of FPN@512 (C=128,
      G=32, H=W in 16, 32, 32, 64, 64, 64, 128) at each served bucket's
-     batch (N in 1, 8, 32), in bf16 and f32, and at the timed step's
-     batch (128) in bf16; plus, off the path, one ``relu=False`` C=64 G=16
+     batch (N in 1, 8, 32), in bf16 and f32, and at the config's batch
+     (128) in bf16 (the timed step) and f32 (the int8 whole-slide paths);
+     plus, off the path, one ``relu=False`` C=64 G=16
      case and a 7x7 plane.  Each shape runs the design its plan takes and,
      where that is the cluster design, the streaming design beside it
      (through the two private launchers), both held and timed; the 7x7
@@ -37,6 +38,16 @@ Phases, each of which fails the run (exit code 1) on any error:
      byte-load instantiation); its ``copy_ms`` moves the same bytes with
      no arithmetic (``out.copy_(images.permute(0, 3, 1, 2))`` and
      ``mout.copy_(masks)``);
+   * ``int8_conv`` (``csrc/int8_conv.cu``) bitwise (int32 sums and the
+     int8/bf16/f32 output) at every site of the int8 forwards of FPN,
+     DeepLabV3+, ResUNet and PSPNet at 512² and batch 32, operands
+     recorded from one forward of each with seeded weights, with
+     ``torch._int_mm`` on the same bytes for the 1×1 sites and cuDNN's
+     bf16 conv of the same shape as yardsticks; after the int8 main paths
+     of phase 10, the same at every other key they launched it under
+     (shapes and epilogue: the buckets 1 and 8, the slides' batch 128 and
+     last batches, ResUNet's 512); a launched key without a bitwise row
+     fails the run;
 
 4. serving end to end, a main path: a seeded random smp-FPN/resnet18
    reference ``.pth`` → ``cli.export`` (tile 512, bf16) → the HTTP daemon
@@ -108,9 +119,24 @@ Phases, each of which fails the run (exit code 1) on any error:
 9b. ``cli.overlay --banded`` with DeepLabV3+'s and FPN/efficientnet-b7's
    ``best.pth`` on a 2048² slide (7 GN launches for FPN's one batch): any
    model runs the whole-slide path.
+10. int8 serving, stain normalization and the device slide, each a main
+   path with the int8 kernel's counters set to 0 just before it and read
+   just after: FPN int8 from
+   ``cli.export --int8 --calib_path`` (phase 5's ``best.pth``, the test
+   patches) served by the daemon at buckets 1/8/32 (int8 and GN launches
+   per forward), direct calls, the profiled forward, card vs CPU masks
+   ≥ 99.9%, int8 vs bf16 masks > 98%, the artifact ≤ 0.4× the float one;
+   ResUNet int8 at batch 512 and DeepLabV3+/PSPNet int8 at 32;
+   ``cli.overlay --int8 --banded`` on a 2048² slide; a ``stain: macenko``
+   FPN artifact served and held card vs CPU on H&E-like tiles and the
+   synthetic patches (stained pixels and probabilities 5e-4, masks 99.9%;
+   stained pixels in float64 1e-8); the 40,960²
+   slide (25,281 windows) from ``DeviceSlideSource`` in bf16 and int8,
+   with 0 bytes uploaded.
 
 Before the ``kernels`` line a ``{"models": ...}`` line sums up the new
-models' numbers and a ``{"wsi_40k": ...}`` line the timed slide.  The
+models' numbers (``int8`` and ``stain`` among them) and a ``{"wsi_host":
+..., "wsi_40k_device": ...}`` line the timed slides.  The
 line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 package beside this file, it exits non-zero and prints no result.
@@ -259,12 +285,14 @@ def phase_build() -> None:
 
 # -- phase 3 ----------------------------------------------------------------
 
-def device_ms(fn, kernels: int, iters: int = 10):
+def device_ms(fn, kernels: int, iters: int = 10, names=None):
     """The device time of ``fn``'s kernels per call, from ``torch.profiler``
     over ``iters`` calls: beside ``cuda_ms``'s back-to-back time, which is
     the host's where the host cannot keep up.  None (not measured) unless
     the profiler saw ``kernels`` kernels per call: a window where it drops
-    events reads below the bound."""
+    events reads below the bound.  With ``names``, only kernels whose name
+    holds one of them count (the profiler also records other threads'
+    launches in its window)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -276,8 +304,12 @@ def device_ms(fn, kernels: int, iters: int = 10):
             fn()
         torch.cuda.synchronize()
     events = [ev for ev in prof.key_averages()
-              if ev.device_type == DeviceType.CUDA]
-    if sum(ev.count for ev in events) != kernels * iters:
+              if ev.device_type == DeviceType.CUDA
+              and (names is None or any(n in ev.key for n in names))]
+    seen = sum(ev.count for ev in events)
+    if seen != kernels * iters:
+        log(f"[profile] device time not measured: the profiler saw {seen} "
+            f"kernels, {kernels * iters} expected")
         return None
     return sum(ev.self_device_time_total for ev in events) / 1e3 / iters
 
@@ -338,9 +370,10 @@ def phase_kernels() -> list:
     cases = [(n, 128, hw, 32, True, dt)
              for dt in (torch.bfloat16, torch.float32)
              for n in BUCKETS for hw in GN_SITES]
-    # the timed train step's batch
-    cases += [(CONFIG_BATCH, 128, hw, 32, True, torch.bfloat16)
-              for hw in GN_SITES]
+    # the timed train step's batch, and the int8 whole-slide paths' (f32
+    # GN at the config's batch)
+    cases += [(CONFIG_BATCH, 128, hw, 32, True, dt)
+              for dt in (torch.bfloat16, torch.float32) for hw in GN_SITES]
     # off the served path: no ReLU, and planes that are not a whole number
     # of 16-byte vectors (the plan sends them to the streaming design, with
     # scalar accesses)
@@ -846,6 +879,7 @@ def _serve_http(artifact) -> dict:
     group_norm_relu.launches = 0
     group_norm_relu.launches_by_shape.clear()
     group_norm_relu.launches_by_variant.clear()
+    _int8_counts(reset=True)
     server.start(warmup=True)
     serve_thread = threading.Thread(target=server.serve_forever, daemon=True)
     serve_thread.start()
@@ -880,6 +914,7 @@ def _serve_http(artifact) -> dict:
     launches = group_norm_relu.launches
     by_shape = dict(group_norm_relu.launches_by_shape)
     by_variant = dict(group_norm_relu.launches_by_variant)
+    int8_launches, int8_by_shape = _int8_counts()
     # -- ... to here
     server.shutdown()
     serve_thread.join(timeout=30)
@@ -905,7 +940,8 @@ def _serve_http(artifact) -> dict:
         raise AssertionError(f"daemon stats {stats}")
     return {"stats": stats, "launches": launches, "by_shape": by_shape,
             "by_variant": by_variant, "http_s": http_s,
-            "n_clients": n_clients}
+            "n_clients": n_clients, "int8_launches": int8_launches,
+            "int8_by_shape": int8_by_shape}
 
 
 def _serve_log(what: str, served: dict) -> str:
@@ -2259,6 +2295,644 @@ def phase_model_overlay(tmp: Path, model: str,
             "by_variant": counts[2]}
 
 
+# -- phase 10: int8 serving, stain normalization, the device slide -----------
+
+INT8_SOURCE = "pdac_pathological_image_segmentation_tpu_torch/csrc/int8_conv.cu"
+# no TPU kernel: the JAX package's int8 convolution, left to XLA
+INT8_REPLACES = "pdac_pathological_image_segmentation_tpu/infer/quantized.py:149"
+INT8_BATCH = 32  # the served bucket: the int8 kernel rows' batch
+INT8_OPS_PER_MAC = 2
+INT8_PEAK_OPS = 1.979e15  # H100 SXM dense int8, NVIDIA data sheet
+INT8_MODELS = ("fpn", "deeplabv3+", "unet", "pspnet")
+
+
+def _int8_counts(reset: bool = False) -> tuple:
+    """The int8 kernel's counters ``(launches, by shape)``; with ``reset``
+    they are set to 0 first."""
+    from pdac_pathological_image_segmentation_tpu_torch.ops.int8_conv import (
+        int8_conv,
+    )
+
+    if reset:
+        int8_conv.launches = 0
+        int8_conv.launches_by_shape.clear()
+    return int8_conv.launches, dict(int8_conv.launches_by_shape)
+
+
+def _calib_batches(tmp: Path) -> list:
+    """The int8 calibration batches: the 16 synthetic test patches."""
+    from pdac_pathological_image_segmentation_tpu_torch.infer.export import (
+        calib_batches_from_dir,
+    )
+
+    return calib_batches_from_dir(str(tmp / "data" / "test"), TILE)
+
+
+def _quantized_step(tmp: Path, model: str, act_storage: str = "int8"):
+    """``model``'s phase-5 ``best.pth`` on the card, calibrated on the test
+    patches: ``(cfg, bf16 model, int8 step)``."""
+    from pdac_pathological_image_segmentation_tpu_torch import Config
+    from pdac_pathological_image_segmentation_tpu_torch.infer import (
+        quantized as q,
+    )
+    from pdac_pathological_image_segmentation_tpu_torch.infer.evaluate import (
+        load_serving_state,
+    )
+
+    _, cfg_d, _ = _train_config(tmp, model, epochs=3)
+    cfg = Config.from_dict(cfg_d)
+    net, _ = load_serving_state(
+        cfg, str(tmp / f"train_{_tag(model)}_out" / "pth" / "best.pth"),
+        "cuda")
+    sd = net.state_dict()
+    bundle, forward = q.quantize_from_config(cfg, sd, _calib_batches(tmp))
+    step = q.make_quantized_infer_step(sd, bundle, TILE, forward,
+                                       act_storage=act_storage)
+    return cfg, net, step
+
+
+def _seeded_int8_step(model: str):
+    """``model`` on resnet18 with seeded weights on the card, calibrated on
+    8 seeded tiles: its int8 step."""
+    from pdac_pathological_image_segmentation_tpu_torch import Config
+    from pdac_pathological_image_segmentation_tpu_torch.infer import (
+        quantized as q,
+    )
+
+    cfg = Config(model=model, img_size=TILE)
+    sd = {k: v.cuda() for k, v in _seeded(model, "resnet18", seed=60).items()}
+    bundle, forward = q.quantize_from_config(cfg, sd, [_tiles(8, seed=61)])
+    return q.make_quantized_infer_step(sd, bundle, TILE, forward)
+
+
+def _record_int8_sites(step, x) -> dict:
+    """One forward of ``step`` with every int8 kernel call recorded: its
+    operands and epilogue, one per launch key (``ops.int8_conv.launch_key``:
+    shapes, epilogue, load path), in call order."""
+    from pdac_pathological_image_segmentation_tpu_torch.infer import (
+        quantized as q,
+    )
+    from pdac_pathological_image_segmentation_tpu_torch.ops.int8_conv import (
+        launch_key,
+    )
+
+    original = q.int8_conv
+    calls = {}
+
+    def recorder(xq, sx, kq, sw, stride=1, pad=0, dilation=1, **kw):
+        calls.setdefault(launch_key(xq, kq, stride, pad, dilation, **kw),
+                         (xq, sx, kq, sw, stride, pad, dilation, kw))
+        return original(xq, sx, kq, sw, stride, pad, dilation, **kw)
+
+    q.int8_conv = recorder
+    try:
+        step(x)
+        torch.cuda.synchronize()
+    finally:
+        q.int8_conv = original
+    return calls
+
+
+def _bitwise(a: torch.Tensor, b: torch.Tensor) -> bool:
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    if a.dtype == torch.bfloat16:
+        return torch.equal(a.view(torch.int16), b.view(torch.int16))
+    return torch.equal(a, b)
+
+
+def _axis_reads(size: int, k: int, stride: int, pad: int, dil: int,
+                out: int) -> tuple:
+    """Along one axis of a convolution: ``(input positions that some output
+    reads, (output, tap) pairs that land inside the input)``.  A 1×1
+    stride-2 site reads every other position; a padded tap reads none."""
+    inside = [o * stride - pad + i * dil for o in range(out)
+              for i in range(k)]
+    inside = [t for t in inside if 0 <= t < size]
+    return len(set(inside)), len(inside)
+
+
+def _int8_row(model: str, key: tuple, operands: tuple,
+              quick: bool = False) -> dict:
+    """The int8 kernel against its plain version at one recorded site,
+    bitwise (int32 sums and the epilogue's output), and its row: ``ms`` by
+    CUDA events, ``device_ms`` by the profiler (not with ``quick``), the
+    plain version's ms, the bound and two yardsticks the port never calls:
+    ``torch._int_mm`` on the same int8 bytes for the 1×1 sites
+    (``library_ms``), cuDNN's bf16 ``F.conv2d`` of the same shape for every
+    site (``cudnn_bf16_ms``).  The bound counts the input pixels some output
+    reads and the taps that land inside the input.  ``quick`` times fewer
+    calls: the rows at the main paths' other batches."""
+    from pdac_pathological_image_segmentation_tpu_torch.ops.int8_conv import (
+        int8_conv,
+        int8_conv_reference,
+        output_size,
+    )
+
+    xq, sx, kq, sw, stride, pad, dil, kw = operands
+    n, h, w, c = xq.shape
+    f, kh, kwd, _ = kq.shape
+    oh, ow = (output_size(h, kh, stride, pad, dil),
+              output_size(w, kwd, stride, pad, dil))
+    args = (xq, sx, kq, sw, stride, pad, dil)
+    got = int8_conv(*args, **kw)
+    want = int8_conv_reference(*args, **kw)
+    sums = int8_conv(*args, out_dtype=torch.int32)
+    sums_ref = int8_conv_reference(*args, out_dtype=torch.int32)
+    torch.cuda.synchronize()
+    if not (_bitwise(got, want) and _bitwise(sums, sums_ref)):
+        raise AssertionError(
+            f"int8_conv {key}: kernel differs from the plain version (output "
+            f"max |Δ| {float((got.float() - want.float()).abs().max())}, "
+            f"int32 sums equal {_bitwise(sums, sums_ref)})")
+    del want, sums_ref
+    timing = dict(warmup=2, iters=5, windows=3) if quick else {}
+    ms = cuda_ms(lambda: int8_conv(*args, **kw), **timing)
+    dev = None if quick else device_ms(
+        lambda: int8_conv(*args, **kw), kernels=1,
+        names=("int8_conv_kernel",))
+    plain = cuda_ms(lambda: int8_conv_reference(*args, **kw),
+                    **(dict(warmup=0, iters=1, windows=1) if quick
+                       else dict(warmup=1, iters=2, windows=3)))
+    rows_h, taps_h = _axis_reads(h, kh, stride, pad, dil, oh)
+    rows_w, taps_w = _axis_reads(w, kwd, stride, pad, dil, ow)
+    res = kw.get("residual")
+    nbytes = (n * rows_h * rows_w * c + kq.numel() + 4 * f * (
+        1 + (kw.get("scale") is not None) + (kw.get("shift") is not None))
+        + got.numel() * got.element_size()
+        + (0 if res is None else res.numel() * res.element_size()))
+    macs = n * taps_h * taps_w * c * f
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = INT8_OPS_PER_MAC * macs / INT8_PEAK_OPS * 1e3
+    xb = xq.permute(0, 3, 1, 2).to(torch.bfloat16)
+    wb = kq.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    cudnn = cuda_ms(lambda: torch.nn.functional.conv2d(
+        xb, wb, stride=stride, padding=pad, dilation=dil), **timing)
+    del xb
+    library = None
+    if kh == kwd == 1 and pad == 0 and c % 8 == 0 and f % 8 == 0:
+        a = xq[:, ::stride, ::stride, :].reshape(-1, c).contiguous()
+        b = kq.view(f, c).t()
+        if not torch.equal(torch._int_mm(a, b).view(n, oh, ow, f), sums):
+            raise AssertionError(f"_int_mm differs at {key}")
+        library = cuda_ms(lambda: torch._int_mm(a, b), **timing)
+    return {
+        "name": "int8_conv", "route": "cuda", "source": INT8_SOURCE,
+        "replaces": INT8_REPLACES, "model": model,
+        "shape": [n, h, w, c, f, kh, kwd, stride, pad, dil],
+        "epilogue": dict(zip(("scale", "shift", "residual", "bias_last",
+                              "relu", "out", "nchw", "vec"), key[10:])),
+        "key": list(key), "max_abs_err": 0.0, "ms": ms, "device_ms": dev,
+        "plain_ms": plain, "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": library, "cudnn_bf16_ms": cudnn, "macs": macs,
+        "bytes": nbytes}
+
+
+def _log_int8_row(row: dict) -> None:
+    log(f"[int8-kernel] {row['model']} {row['shape']} {row['epilogue']}: "
+        f"bitwise (sums and output); {row['ms']:.4f} ms (device "
+        f"{_ms_text(row['device_ms'])}), bound {row['bound_ms']:.4f} "
+        f"({row['bound_by']}), plain {row['plain_ms']:.3f}, cuDNN bf16 "
+        f"{row['cudnn_bf16_ms']:.4f}, _int_mm {_ms_text(row['library_ms'])}")
+
+
+def phase_int8_kernels() -> list:
+    """The int8 convolution kernel against its plain version on the card,
+    bitwise, at every site of FPN/resnet18's int8 forward at 512² and batch
+    32 (real operands, recorded from one forward of a seeded model: the
+    shapes are the main paths'), then the sites the other three models add
+    (DeepLabV3+'s dilated stage and ASPP, ResUNet's decoder halves,
+    PSPNet's bottleneck).  It runs with phase 3, before the later phases'
+    long profiles, after which the profiler records none of this kernel's
+    launches; :func:`phase_int8_launched` adds the main paths' other
+    batches."""
+    set_tf32(False)
+    warm_card()
+    x = torch.from_numpy(_tiles(INT8_BATCH, seed=51)).cuda()
+    rows = {}
+    for model in INT8_MODELS:
+        step = _seeded_int8_step(model)
+        calls = _record_int8_sites(step, x)
+        del step
+        for key, operands in calls.items():
+            if key not in rows:
+                rows[key] = _int8_row(model, key, operands)
+                _log_int8_row(rows[key])
+        del calls
+        torch.cuda.empty_cache()
+    rows = list(rows.values())
+    log(f"[int8-kernel] {len(rows)} site keys of {INT8_MODELS} at batch "
+        f"{INT8_BATCH}, all bitwise; kernel {sum(r['ms'] for r in rows):.3f} "
+        f"ms in all against a bound of "
+        f"{sum(r['bound_ms'] for r in rows):.3f} ms")
+    return rows
+
+
+def _int8_path_model(path: str) -> str:
+    """The model an int8 main path ran: ``{model}_int8`` or FPN."""
+    return path[:-len("_int8")] if path[:-len("_int8")] in INT8_MODELS \
+        else "fpn"
+
+
+def phase_int8_launched(int8_paths: dict, rows: list) -> list:
+    """Every key the int8 main paths launched the kernel at and
+    :func:`phase_int8_kernels` did not check (the buckets 1 and 8, the
+    slides' batch 128 and their last, partial batches, ResUNet's 512):
+    the path's model with seeded weights is recorded at that batch and each
+    such site checked bitwise and timed (``quick``).  Fails if a launched
+    key is left without a row."""
+    set_tf32(False)
+    have = {tuple(r["key"]) for r in rows}
+    need = {}
+    for path, by_shape in int8_paths.items():
+        for key in by_shape:
+            if key not in have:
+                need.setdefault(_int8_path_model(path), {}).setdefault(
+                    key[0], set()).add(key)
+    tiles = torch.from_numpy(_tiles(INT8_BATCH, seed=51)).cuda()
+    new = []
+    for model, by_batch in need.items():
+        step = _seeded_int8_step(model)
+        for n, keys in sorted(by_batch.items()):
+            x = tiles.repeat(-(-n // INT8_BATCH), 1, 1, 1)[:n]
+            calls = _record_int8_sites(step, x)
+            for key in [k for k in calls if k in keys]:
+                new.append(_int8_row(model, key, calls[key], quick=True))
+                _log_int8_row(new[-1])
+            del calls, x
+            torch.cuda.empty_cache()
+        del step
+    missing = ({k for b in need.values() for ks in b.values() for k in ks}
+               - {tuple(r["key"]) for r in new})
+    if missing:
+        raise AssertionError(f"int8_conv launched at {len(missing)} keys "
+                             f"with no bitwise row: {sorted(missing)}")
+    log(f"[int8-kernel] {len(new)} more site keys at the main paths' other "
+        f"batches {sorted({n for b in need.values() for n in b})}, all "
+        f"bitwise")
+    return new
+
+
+def phase_int8_serving(tmp: Path, card: str) -> dict:
+    """FPN/resnet18 int8, a main path: ``cli.export --int8 --calib_path``
+    on phase 5's ``best.pth`` (the 16 test patches calibrate on the card)
+    → the daemon at buckets 1/8/32 with the float path's requests; the
+    int8 kernel's counters set to 0 before the daemon starts and read after
+    the last response (7 GN launches a forward too, f32).  Then direct
+    calls and the profiled bucket-32 forward; card vs CPU int8 masks
+    ≥ 99.9% (CPU: the plain versions); int8 vs the bf16 artifact's masks
+    > 98%; the artifact ≤ 0.4 x the float one."""
+    from pdac_pathological_image_segmentation_tpu_torch.cli import (
+        export as cli_export,
+    )
+    from pdac_pathological_image_segmentation_tpu_torch.infer.export import (
+        load_serving_artifact,
+    )
+
+    set_tf32(False)
+    cfg_path, _, _ = _train_config(tmp, "fpn", epochs=3)
+    pth = str(tmp / "train_fpn_out" / "pth" / "best.pth")
+    paths = {k: tmp / f"fpn_{k}.pdacpt" for k in ("int8", "bf16")}
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli_export.main(["--config", str(cfg_path), "--pth_path", pth,
+                         "--out", str(paths["int8"]), "--int8",
+                         "--calib_path", str(tmp / "data" / "test"),
+                         "--device", "cuda"])
+    export_s = time.perf_counter() - t0
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli_export.main(["--config", str(cfg_path), "--pth_path", pth,
+                         "--out", str(paths["bf16"])])
+    size = {k: p.stat().st_size for k, p in paths.items()}
+    art = load_serving_artifact(str(paths["int8"]), device="cuda")
+    if not art.meta.get("int8") or size["int8"] > 0.4 * size["bf16"]:
+        raise AssertionError(f"int8 artifact {art.meta}, sizes {size}")
+    served = _serve_http(art)
+    launches, by_shape = served["int8_launches"], served["int8_by_shape"]
+    stats = served["stats"]
+    forwards = stats["batches"] + stats["warmups"]
+    if not launches or launches % forwards or not stats.get("int8") \
+            or served["launches"] != 7 * forwards:
+        raise AssertionError(
+            f"int8 serving: {launches} int8 launches, {served['launches']} "
+            f"GN launches over {forwards} forwards; stats {stats}")
+    log(_serve_log("fpn/resnet18 int8", served)
+        + f"; int8 kernel launches {launches} = {launches // forwards} x "
+        f"{forwards} forwards, GN {served['launches']} (f32); artifact "
+        f"{size['int8'] / 1e6:.2f} MB vs bf16 {size['bf16'] / 1e6:.2f} MB "
+        f"({size['int8'] / size['bf16']:.3f}); export with calibration "
+        f"{export_s:.1f} s")
+    direct = _direct_and_profile(art, "fpn/resnet18 int8", card)
+    tiles = _tiles(8, seed=52)
+    p8 = art(tiles)
+    cpu = load_serving_artifact(str(paths["int8"]), device="cpu")(tiles)
+    p16 = load_serving_artifact(str(paths["bf16"]), device="cuda")(tiles)
+    cpu_agree = float(((p8 >= 0.5) == (cpu >= 0.5)).mean())
+    bf16_agree = float(((p8 >= 0.5) == (p16 >= 0.5)).mean())
+    if cpu_agree < 0.999 or bf16_agree <= 0.98 or not np.isfinite(p8).all():
+        raise AssertionError(f"int8 masks: card vs CPU {cpu_agree}, vs bf16 "
+                             f"{bf16_agree}")
+    log(f"[int8] fpn/resnet18 int8 card vs CPU (plain versions), 8x{TILE}²:"
+        f" masks equal {cpu_agree:.6f} (gate 0.999), max |Δp| "
+        f"{float(np.abs(p8 - cpu).max()):.3g}; int8 vs bf16 masks "
+        f"{bf16_agree:.6f} (gate > 0.98), max |Δp| "
+        f"{float(np.abs(p8 - p16).max()):.3g}")
+    return {**direct, "latency_ms_p50": stats.get("latency_ms_p50"),
+            "latency_ms_p99": stats.get("latency_ms_p99"),
+            "artifact_bytes": size, "launches": launches,
+            "by_shape": by_shape, "gn_by_variant": served["by_variant"],
+            "card_vs_cpu_masks": cpu_agree, "vs_bf16_masks": bf16_agree}
+
+
+def phase_int8_models(tmp: Path, card: str) -> dict:
+    """ResUNet int8 at batch 512 (the bench's tile→mask batch) and the
+    DeepLabV3+ and PSPNet int8 forwards at bucket 32, each from its phase-5
+    ``best.pth`` calibrated on the test patches, a main path each: the
+    int8 counters set to 0 just before the timed calls and read after; ms
+    by CUDA events, peak memory, masks against the bf16 model."""
+    from pdac_pathological_image_segmentation_tpu_torch.train.steps import (
+        make_infer_step,
+    )
+
+    set_tf32(False)
+    out = {}
+    for model, batch in (("unet", UNET_INFER_BATCH), ("deeplabv3+", 32),
+                         ("pspnet", 32)):
+        _, net, step = _quantized_step(tmp, model)
+        x = torch.from_numpy(_tiles(32, seed=53)).cuda().repeat(
+            batch // 32, 1, 1, 1)
+        _int8_counts(reset=True)
+        step(x)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: step(x), warmup=1, iters=4, windows=3)
+        peak = torch.cuda.max_memory_allocated()
+        launches, by_shape = _int8_counts()
+        p8 = step(x[:32]).float()
+        p16 = make_infer_step(net, TILE)(x[:32]).float()
+        agree = float(((p8 >= 0.5) == (p16 >= 0.5)).float().mean())
+        if not launches or not torch.isfinite(p8).all():
+            raise AssertionError(f"{model} int8: {launches} launches")
+        out[model] = {"batch": batch, "ms": ms, "tiles_per_s":
+                      batch * 1e3 / ms, "peak_bytes": peak,
+                      "launches": launches, "by_shape": by_shape,
+                      "vs_bf16_masks": agree}
+        log(f"[int8] {model}/resnet18 int8 forward at batch {batch}, input "
+            f"on the card: {ms:.3f} ms by CUDA events, "
+            f"{batch * 1e3 / ms:.1f} tiles/s, peak {peak / 2 ** 30:.2f} GiB;"
+            f" int8 kernel launches {launches}; masks vs bf16 {agree:.6f}; "
+            f"on {card}")
+        del net, step, x
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_int8_overlay(tmp: Path) -> dict:
+    """``cli.overlay --int8 --banded --device cuda`` with phase 5's FPN
+    ``best.pth`` on a 2048² JPEG TIFF (stride 256, hann, the config's
+    batch), a main path: the int8 and GN counters set to 0 just before it
+    and read just after."""
+    import yaml
+    from PIL import Image
+
+    set_tf32(False)
+    slide = _wsi_slide(OVERLAY_SLIDE, seed=45)
+    path = tmp / "wsi" / "slide_int8.tiff"
+    path.parent.mkdir(exist_ok=True)
+    Image.fromarray(slide).save(path, compression="jpeg", quality=90)
+    _, cfg, _ = _train_config(tmp, "fpn", 3)
+    cfg_path = tmp / "wsi" / "overlay_int8.yaml"
+    cfg_path.write_text(yaml.safe_dump(dict(cfg, batch_size=CONFIG_BATCH)))
+    out = tmp / "wsi" / "out_int8"
+    # -- the main path: launches counted from here ...
+    _int8_counts(reset=True)
+    _gn_forward_counts(reset=True)
+    result, _, frac = _run_cli_overlay([
+        "--config", str(cfg_path), "--device", "cuda", "--pth_path",
+        str(tmp / "train_fpn_out" / "pth" / "best.pth"), "--slide",
+        str(path), "--banded", "--stride", str(WSI_STRIDE), "--blend",
+        "hann", "--int8", "--save_path", str(out)])
+    launches, by_shape = _int8_counts()
+    gn = _gn_forward_counts()
+    # -- ... to here
+    prob = _check_prob_map("int8 overlay", out / "probability_map.npy",
+                           (OVERLAY_SLIDE, OVERLAY_SLIDE), np.float16)
+    windows = _windows(OVERLAY_SLIDE, WSI_STRIDE) ** 2
+    high, low = float((prob >= 0.5).mean()), float((prob > 0.5).mean())
+    if result["n_tiles"] != windows or not launches or not gn[0] \
+            or not low - 1e-12 <= result["tumor_fraction"] <= high + 1e-12:
+        raise AssertionError(f"int8 overlay: {result}, int8 launches "
+                             f"{launches}, GN {gn[0]}")
+    log(f"[wsi] fpn/resnet18 --int8 --banded: {OVERLAY_SLIDE}² JPEG TIFF, "
+        f"{windows} windows in {result['seconds']:.1f} s (calibration "
+        f"included), tumor fraction {result['tumor_fraction']:.6f} (printed "
+        f"{frac}); int8 kernel launches {launches}, GN {gn[0]} (f32, "
+        f"calibration's included)")
+    return {"seconds": result["seconds"], "launches": launches,
+            "by_shape": by_shape, "gn_by_variant": gn[2]}
+
+
+def _he_tiles(n: int, seed: int, size: int = TILE) -> np.ndarray:
+    """H&E-like uint8 tiles by Beer-Lambert: smooth gamma-distributed
+    hematoxylin and eosin concentrations on the reference stain basis,
+    jittered per tile, a fifth of each tile glass, and noise.  Their
+    optical densities lie near a stain plane, which Macenko's fit
+    presumes."""
+    from pdac_pathological_image_segmentation_tpu_torch.ops.stain import (
+        REFERENCE_STAIN_BASIS,
+    )
+
+    rng = np.random.default_rng(seed)
+    tiles = []
+    for _ in range(n):
+        # concentrations that keep every pixel above black: a saturated
+        # pixel's optical density is all noise
+        coarse = torch.from_numpy(rng.gamma(2.0, 0.2, (1, 2, 16, 16))
+                                  .astype(np.float32))
+        conc = torch.nn.functional.interpolate(
+            coarse, size=(size, size), mode="bilinear",
+            align_corners=False)[0].numpy().transpose(1, 2, 0)
+        glass = np.kron(rng.random((size // 32, size // 32)) < 0.2,
+                        np.ones((32, 32), bool))
+        conc[glass] *= 0.02
+        basis = REFERENCE_STAIN_BASIS + rng.normal(0, 0.05, (3, 2))
+        rgb = 255.0 * np.power(10.0, -(conc @ basis.T))
+        tiles.append(np.clip(rgb + rng.normal(0, 2, rgb.shape), 0, 255))
+    return np.stack(tiles).astype(np.uint8)
+
+
+def phase_stain_serving(tmp: Path, card: str) -> dict:
+    """A ``stain: macenko`` FPN artifact (f32, TF32 off) from phase 5's
+    ``best.pth``, served by the daemon on the card (GN 7 a forward), then
+    card vs CPU on 8 H&E-like tiles and on the 8 first synthetic test
+    patches (colour noise and a tinted disc: no stain plane): the stained
+    pixels and the probabilities within 5e-4 (the f32 model's bound) and
+    masks ≥ 99.9% equal; the stain must change the probabilities.  The
+    stained patches in float64 too, card vs CPU within 1e-8: a fault of
+    the card's eigh, sort or percentile path would show there whatever
+    float32 rounds."""
+    import yaml
+
+    from pdac_pathological_image_segmentation_tpu_torch.cli import (
+        export as cli_export,
+    )
+    from pdac_pathological_image_segmentation_tpu_torch.infer.export import (
+        load_serving_artifact,
+    )
+    from pdac_pathological_image_segmentation_tpu_torch.ops.stain import (
+        apply_stain_batch,
+    )
+
+    set_tf32(False)
+    _, cfg, _ = _train_config(tmp, "fpn", 3)
+    arts = {}
+    for stain in ("macenko", "none"):
+        cfg_path = tmp / f"stain_{stain}.yaml"
+        cfg_path.write_text(yaml.safe_dump(dict(
+            cfg, stain=stain, compute_dtype="float32")))
+        arts[stain] = tmp / f"fpn_{stain}.pdacpt"
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli_export.main(["--config", str(cfg_path), "--pth_path",
+                             str(tmp / "train_fpn_out" / "pth" / "best.pth"),
+                             "--out", str(arts[stain])])
+    art = load_serving_artifact(str(arts["macenko"]), device="cuda")
+    served = _serve_http(art)
+    forwards = served["stats"]["batches"] + served["stats"]["warmups"]
+    if served["launches"] != 7 * forwards:
+        raise AssertionError(f"stain serving GN launches {served['launches']}"
+                             f" over {forwards} forwards")
+    log(_serve_log("fpn/resnet18 stain macenko f32", served))
+    cpu_art = load_serving_artifact(str(arts["macenko"]), device="cpu")
+    plain_art = load_serving_artifact(str(arts["none"]), device="cuda")
+
+    def gap(a, b):  # per image, max |Δ| over pixels and channels
+        return (a.double() - b.double()).abs().amax(dim=(1, 2, 3))
+
+    out = {"latency_ms_p50": served["stats"].get("latency_ms_p50"),
+           "gn_by_variant": served["by_variant"]}
+    patches = np.concatenate(_calib_batches(tmp))[:8]
+    for what, tiles in (("he_tiles", _he_tiles(8, seed=54)),
+                        ("patches", patches)):
+        x01 = torch.from_numpy(tiles).float() / 255.0
+        pix = gap(apply_stain_batch(x01.cuda(), "macenko").cpu(),
+                  apply_stain_batch(x01, "macenko"))
+        x64 = x01.double()
+        pix64 = gap(apply_stain_batch(x64.cuda(), "macenko").cpu(),
+                    apply_stain_batch(x64, "macenko"))
+        card, cpu = art(tiles), cpu_art(tiles)
+        err = float(np.abs(card - cpu).max())
+        agree = float(((card >= 0.5) == (cpu >= 0.5)).mean())
+        moved = float(np.abs(card - plain_art(tiles)).max())
+        if float(pix.max()) > 5e-4 or float(pix64.max()) > 1e-8 \
+                or err > 5e-4 or agree < 0.999 or moved < 1e-3:
+            raise AssertionError(
+                f"stain artifact card vs CPU on the {what}: stained pixels "
+                f"{pix.tolist()} (float64 {pix64.tolist()}), max |Δp| {err},"
+                f" masks {agree}; vs no stain {moved}")
+        log(f"[stain] macenko FPN artifact, f32, TF32 off, 8 "
+            f"{what.replace('_', ' ')}: card vs CPU stained pixels max |Δ| "
+            f"{float(pix.max()):.3g} (bound 5e-4; float64 "
+            f"{float(pix64.max()):.3g}, bound 1e-8), max |Δp| {err:.3g} "
+            f"(bound 5e-4), masks equal {agree:.6f} (gate 0.999); vs the "
+            f"stainless artifact max |Δp| {moved:.3g}")
+        out[what] = {"pixels_max": float(pix.max()),
+                     "pixels_f64_max": float(pix64.max()),
+                     "card_vs_cpu_max": err, "masks": agree}
+    return out
+
+
+def phase_wsi_device(tmp: Path, card: str, int8: bool) -> dict:
+    """The timed 40,960² slide (stride 256, hann, 25,281 windows) from
+    ``DeviceSlideSource``: the bands are made on the card and nothing is
+    uploaded; FPN/resnet18 from phase 5's ``best.pth``, batch 128, bf16 or
+    (``int8``) int8 calibrated on the slide's first 16 windows.  A main
+    path: the counters set to 0 just before the run and read just after;
+    profiled for the busy share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pdac_pathological_image_segmentation_tpu_torch import Config
+    from pdac_pathological_image_segmentation_tpu_torch.data.synthetic import (
+        DeviceSlideSource,
+    )
+    from pdac_pathological_image_segmentation_tpu_torch.infer import (
+        quantized as q,
+    )
+    from pdac_pathological_image_segmentation_tpu_torch.infer.evaluate import (
+        load_serving_state,
+    )
+    from pdac_pathological_image_segmentation_tpu_torch.infer.wsi import (
+        BandedSlidingWindow,
+    )
+
+    set_tf32(False)
+    _, cfg_d, _ = _train_config(tmp, "fpn", epochs=3)
+    cfg = Config.from_dict(dict(cfg_d, batch_size=CONFIG_BATCH))
+    model, _ = load_serving_state(
+        cfg, str(tmp / "train_fpn_out" / "pth" / "best.pth"), "cuda")
+    source = DeviceSlideSource(WSI_TIMED_SIDE, tile=TILE, stride=WSI_STRIDE,
+                               seed=41, device="cuda")
+    infer_step = None
+    if int8:
+        sd = model.state_dict()
+        calib = np.stack([source.get(i)[0] for i in range(16)])
+        bundle, forward = q.quantize_from_config(cfg, sd, [calib])
+        infer_step = q.make_quantized_infer_step(sd, bundle, TILE, forward)
+    runner = BandedSlidingWindow(model, tile=TILE, batch_size=CONFIG_BATCH,
+                                 blend="hann", num_workers=cfg.num_worker,
+                                 infer_step=infer_step)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # -- the main path: launches counted from here ...
+    _gn_forward_counts(reset=True)
+    _int8_counts(reset=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        prob, mask = runner.run(source)
+        wall = time.perf_counter() - t0
+    gn = _gn_forward_counts()
+    launches, by_shape = _int8_counts()
+    # -- ... to here
+    peak = torch.cuda.max_memory_allocated()
+    tag = "int8" if int8 else "bf16"
+    stats = runner.last_run
+    if stats["band_upload_bytes"] or not gn[0] or bool(launches) != int8:
+        raise AssertionError(f"device slide {tag}: {stats}, GN {gn[0]}, "
+                             f"int8 launches {launches}")
+    events = [ev for ev in prof.key_averages()
+              if ev.device_type == DeviceType.CUDA]
+    copies = sum(ev.self_device_time_total for ev in events
+                 if ev.key.startswith(("Memcpy", "Memset"))) / 1e6
+    kernels = sum(ev.self_device_time_total for ev in events) / 1e6 - copies
+    n = len(source)
+    sample = prob[::97, ::89].astype(np.float32)
+    if prob.shape != (WSI_TIMED_SIDE,) * 2 or not np.isfinite(sample).all() \
+            or sample.min() < 0 or sample.max() > 1:
+        raise AssertionError(f"device slide {tag}: maps {prob.shape}")
+    out = {"windows": n, "wall_s": wall, "windows_per_s": n / wall,
+           "kernel_s": kernels, "copy_s": copies,
+           "busy_share": kernels / wall, "peak_bytes": peak,
+           "upload_bytes": stats["band_upload_bytes"],
+           "band_make_s": stats["band_upload_s"],
+           "read_s": stats["band_read_s"], "bands": stats["bands"],
+           "gn_launches": gn[0], "int8_launches": launches,
+           "tumor_fraction": float(mask[::7, ::7].mean())}
+    log(f"[wsi-40k-device] {WSI_TIMED_SIDE}² DeviceSlideSource, stride "
+        f"{WSI_STRIDE}, hann, FPN/resnet18 {tag}, batch {CONFIG_BATCH}: {n} "
+        f"windows in {wall:.2f} s wall = {n / wall:.1f} windows/s; device "
+        f"kernels {kernels:.2f} s, busy share {kernels / wall:.3f}; copies "
+        f"{copies:.2f} s; peak {peak / 2 ** 30:.2f} GiB; {stats['bands']} "
+        f"bands made on the card in {stats['band_upload_s']:.3f} s of "
+        f"device time, 0 bytes uploaded; GN launches {gn[0]}, int8 "
+        f"{launches}; on {card}")
+    del prob, mask
+    return {"summary": out, "by_variant": gn[2], "by_shape": by_shape}
+
+
 def _seeded(model: str, backbone: str, seed: int) -> dict:
     from pdac_pathological_image_segmentation_tpu_torch import Config
     from pdac_pathological_image_segmentation_tpu_torch.models import (
@@ -2289,6 +2963,7 @@ def main() -> int:
     kernels = phase_kernels()
     kernels += phase_gn_backward_kernels()
     kernels += phase_augment_kernels()
+    int8_rows = phase_int8_kernels()
     enc_tags = [_tag(m, b) for m, b in ENCODER_PATHS]
     b7_tag = _tag("fpn", B7)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -2339,6 +3014,12 @@ def main() -> int:
         wsi_timed = phase_wsi_timed(tmp, card)
         _add_counts(wsi, wsi_timed["by_variant"])
         phase_wsi_card_vs_cpu(tmp)
+        int8_serve = phase_int8_serving(tmp, card)
+        int8_models = phase_int8_models(tmp, card)
+        int8_overlay = phase_int8_overlay(tmp)
+        stain = phase_stain_serving(tmp, card)
+        wsi_device = {tag: phase_wsi_device(tmp, card, tag == "int8")
+                      for tag in ("bf16", "int8")}
     train_runs = {"train": train, "train_unet": train_unet,
                   **{f"train_{m}": run for m, run in train_new.items()}}
     for row in kernels:
@@ -2352,6 +3033,13 @@ def main() -> int:
             key = (row["variant"], *row["shape"], row["dtype"], row["relu"])
             if row["name"] == "group_norm_relu":
                 paths = {"serve": serve_by_variant.get(key, 0),
+                         "serve_int8": int8_serve["gn_by_variant"].get(key, 0),
+                         "overlay_int8":
+                             int8_overlay["gn_by_variant"].get(key, 0),
+                         "serve_stain": stain["gn_by_variant"].get(key, 0),
+                         **{f"wsi_device_{t}":
+                            run["by_variant"].get(key, 0)
+                            for t, run in wsi_device.items()},
                          "train": train["gn_forward"][2].get(key, 0),
                          "eval": evaluation["by_variant"]["fpn"].get(key, 0),
                          "wsi": wsi.get(key, 0),
@@ -2368,9 +3056,35 @@ def main() -> int:
                              train_new[b7_tag]["gn_backward"][2].get(key, 0)}
         row["launches"] = sum(paths.values())
         row["launches_by_path"] = paths
+    int8_paths = {"serve_int8": int8_serve["by_shape"],
+                  "overlay_int8": int8_overlay["by_shape"],
+                  "wsi_device_int8": wsi_device["int8"]["by_shape"],
+                  **{f"{m}_int8": r["by_shape"]
+                     for m, r in int8_models.items()}}
+    for path, by_shape in int8_paths.items():
+        if not sum(by_shape.values()):
+            raise AssertionError(f"int8_conv was not launched on the {path} "
+                                 "path")
+    int8_rows += phase_int8_launched(int8_paths, int8_rows)
+    for row in int8_rows:
+        # launches on the int8 main paths under the row's key (one key, one
+        # row)
+        key = tuple(row["key"])
+        row["launches_by_path"] = {p: by_shape.get(key, 0)
+                                   for p, by_shape in int8_paths.items()}
+        row["launches"] = sum(row["launches_by_path"].values())
+    for path in int8_paths:
+        on = [(r["launches_by_path"][path], r) for r in int8_rows
+              if r["launches_by_path"][path]]
+        log(f"[int8-kernel] {path}: {sum(k for k, _ in on)} launches at "
+            f"{len(on)} keys; kernel {sum(k * r['ms'] for k, r in on):.3f} ms"
+            f" in all against a bound of "
+            f"{sum(k * r['bound_ms'] for k, r in on):.3f} ms")
+    kernels += int8_rows
     # each kernel of the paths ran on them, and on each new path
     gn_paths = ("serve", "eval", "wsi", f"serve_{b7_tag}", f"eval_{b7_tag}",
-                f"wsi_{b7_tag}")
+                f"wsi_{b7_tag}", "serve_int8", "overlay_int8", "serve_stain",
+                "wsi_device_bf16", "wsi_device_int8")
     for name, path in ([("fused_train_transform", p) for p in train_runs]
                        + [("group_norm_relu", p) for p in gn_paths]
                        + [("group_norm_relu", f"train_{b7_tag}"),
@@ -2388,8 +3102,17 @@ def main() -> int:
         "steps": steps, "aspp_dropout": dropout,
         "overlays": {k: {f: v for f, v in o.items() if f != "by_variant"}
                      for k, o in overlays.items()},
+        "int8": {"fpn_serving": {k: v for k, v in int8_serve.items()
+                                 if k not in ("by_shape", "gn_by_variant")},
+                 **{m: {k: v for k, v in r.items() if k != "by_shape"}
+                    for m, r in int8_models.items()},
+                 "overlay_s": int8_overlay["seconds"]},
+        "stain": {k: v for k, v in stain.items() if k != "gn_by_variant"},
         "seconds": time.perf_counter() - t_start}), flush=True)
-    print(json.dumps({"wsi_40k": wsi_timed["summary"]}), flush=True)
+    print(json.dumps({"wsi_host": wsi_timed["summary"],
+                      "wsi_40k_device": {t: r["summary"] for t, r
+                                         in wsi_device.items()}}),
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

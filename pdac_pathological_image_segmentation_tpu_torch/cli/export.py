@@ -14,9 +14,14 @@ ResUNet's for unet (its ``encoder.fc.*`` is dropped), or the port's own ``latest
 go into the artifact.  Orbax directories are the JAX package's format
 and are not read here.  The
 artifact holds the weights, not a compiled program: every batch size and
-the device are chosen at load time.  ``--batch``, ``--platforms`` and
-``--calib_path`` keep their names so that old command lines parse, and
-an error says why when one of them is set.
+the device are chosen at load time.  ``--batch`` and ``--platforms`` keep
+their names so that old command lines parse, and an error says why when
+one of them is set.
+
+``--int8`` writes the int8 serving artifact (``infer/quantized.py``,
+unet/fpn/deeplabv3+/pspnet on resnet18): the first 16 patches of
+``--calib_path`` (default the config's ``test_path``) calibrate the
+activation scales on ``--device`` (default ``cuda``).
 """
 
 from __future__ import annotations
@@ -46,9 +51,13 @@ def main(argv=None) -> dict:
                         help="not supported: the device is chosen at load "
                         "time (serve --device)")
     parser.add_argument("--int8", action="store_true",
-                        help="int8 serving (not ported yet; raises)")
+                        help="export the int8 quantized serving step")
     parser.add_argument("--calib_path", type=str, default=None,
-                        help="int8 calibration (not ported yet; raises)")
+                        help="patch dir for int8 calibration "
+                        "(default: cfg.test_path)")
+    parser.add_argument("--device", default="cuda",
+                        help="where --int8 calibrates: cuda (default) or "
+                        "cpu")
     args = parser.parse_args(argv)
     if args.batch is not None:
         parser.error("--batch is not supported: the artifact holds weights "
@@ -56,11 +65,12 @@ def main(argv=None) -> dict:
     if args.platforms is not None:
         parser.error("--platforms is not supported: pass --device to "
                      "cli.serve (or device= to load_serving_artifact)")
-    if args.calib_path is not None:
-        parser.error("--calib_path is not supported: int8 export is not "
-                     "ported yet (ROADMAP.md)")
+    if args.calib_path is not None and not args.int8:
+        parser.error("--calib_path is not supported without --int8 (it "
+                     "names the int8 calibration patches)")
 
     from pdac_pathological_image_segmentation_tpu_torch.infer.export import (
+        calib_batches_from_dir,
         export_serving_artifact,
     )
     from pdac_pathological_image_segmentation_tpu_torch.utils.torch_weights import (
@@ -73,11 +83,16 @@ def main(argv=None) -> dict:
             "package); pass a reference .pth file")
     cfg = load_config(args.config)
     tile = args.tile or cfg.img_size
+    calib = None
+    if args.int8:
+        calib = calib_batches_from_dir(args.calib_path or cfg.test_path,
+                                       tile)
     size = export_serving_artifact(
         cfg, load_reference_state_dict(args.pth_path), args.out, tile=tile,
-        int8=args.int8)
+        int8=args.int8, calib_batches=calib, device=args.device)
     print(f"serving artifact written to {args.out} ({size / 1e6:.1f} MB, "
-          f"{cfg.model}/{cfg.backbone}, tile {tile}, {cfg.compute_dtype})")
+          f"{cfg.model}/{cfg.backbone}, tile {tile}, "
+          f"{'int8' if args.int8 else cfg.compute_dtype})")
     return {"path": args.out, "bytes": size}
 
 

@@ -13,8 +13,11 @@ schema (``tile_path``/``tsv_path``), or every window of a pyramidal TIFF
 thumbnail) and, on request, ``uncertainty_map.npy``,
 ``probability_map.tiff`` and ``annotations.geojson``.  It runs on the card
 (``--device cuda``, the default) and raises when there is none unless
-``--device cpu`` is passed.  ``--sharded`` and ``--int8`` are not ported
-yet and raise, naming ROADMAP.md.
+``--device cpu`` is passed.  ``--int8`` serves the checkpoint's model on
+the int8 path (``infer/quantized.py``; unet/fpn/deeplabv3+/pspnet on
+resnet18), calibrated on the first 16 tiles that pass the tissue filter;
+it composes with ``--banded`` and ``--tta``.  ``--sharded`` is not ported
+yet and raises, naming ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -39,7 +42,6 @@ NOT_PORTED = {
     "--sharded": "--sharded (multi-device banded stitching, "
                  "infer/wsi_sharded.py) is not ported yet (ROADMAP.md Queue "
                  "1, item 4: Multi-device)",
-    "--int8": "--int8 is not ported yet (ROADMAP.md Queue 1, item 4: int8)",
 }
 
 
@@ -152,14 +154,14 @@ def main(argv=None) -> dict:
                         "via the 257-point sweep (needs --pth_path and "
                         "val_path)")
     parser.add_argument("--int8", action="store_true",
-                        help="int8 serving (not ported yet; raises)")
+                        help="serve on the int8 quantized path (calibrated "
+                        "on the first 16 tissue tiles)")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu")
     args = parser.parse_args(argv)
 
-    for flag in ("--sharded", "--int8"):
-        if getattr(args, flag[2:]):
-            raise NotImplementedError(NOT_PORTED[flag])
+    if args.sharded:
+        raise NotImplementedError(NOT_PORTED["--sharded"])
     device = resolve_device(args.device)
     cfg = load_config(args.config)
     os.makedirs(args.save_path, exist_ok=True)
@@ -180,6 +182,10 @@ def main(argv=None) -> dict:
                              "multi-class masks are the per-pixel argmax")
     if not args.artifact and not args.pth_path:
         raise SystemExit("one of --pth_path or --artifact is required")
+    if args.int8 and args.artifact:
+        raise SystemExit("--int8 quantizes the checkpoint's model; an "
+                         "--artifact is already exported (cli.export --int8 "
+                         "writes an int8 one)")
     if args.uncertainty and not args.tta:
         raise SystemExit("--uncertainty needs --tta (it is the variance "
                          "across the 8 TTA predictions)")
@@ -254,6 +260,30 @@ def main(argv=None) -> dict:
                 f"cfg.img_size is {cfg.img_size}")
         # the device step: probabilities stay on the card for stitching
         infer_step = art.step
+
+    if args.int8:
+        from pdac_pathological_image_segmentation_tpu_torch.infer import (
+            quantized as q,
+        )
+
+        if cfg.model not in q.FORWARDS:
+            raise SystemExit(
+                f"--int8 supports models {sorted(q.FORWARDS)}, "
+                f"got {cfg.model!r}")
+        if cfg.backbone != "resnet18":
+            raise SystemExit(
+                f"--int8 supports backbone resnet18, got {cfg.backbone!r}")
+        if len(source) == 0:
+            raise SystemExit(
+                "no tiles passed the tissue filter — cannot calibrate "
+                "int8 (try a lower tissue_threshold or a finer --level)")
+        calib = np.stack([source.get(i)[0]
+                          for i in range(min(len(source), 16))])
+        sd = evaluator.model.state_dict()
+        # config-driven: DeepLabV3+'s rates and cfg.stain, as the float path
+        bundle, forward = q.quantize_from_config(cfg, sd, [calib])
+        infer_step = q.make_quantized_infer_step(sd, bundle, cfg.img_size,
+                                                 forward=forward)
 
     # under --artifact the runners never touch a model: the artifact's step
     # (weights loaded) is the infer_step

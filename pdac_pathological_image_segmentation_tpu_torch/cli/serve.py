@@ -52,8 +52,9 @@ def main(argv=None):
         threshold=args.threshold, verbose=args.verbose)
     server.start(warmup=not args.no_warmup)
     meta = artifact.meta
+    dtype = "int8" if meta.get("int8") else meta.get("compute_dtype")
     print(f"serving {meta.get('model')}/{meta.get('backbone')} "
-          f"(tile {artifact.tile}, {meta.get('compute_dtype')}) on "
+          f"(tile {artifact.tile}, {dtype}) on "
           f"{artifact.device} at http://{args.host}:{server.server_address[1]}"
           f" — buckets {list(buckets)}, window {args.max_wait_ms} ms",
           flush=True)

@@ -1,7 +1,8 @@
-"""Procedural slide source (the JAX package's
-``data/synthetic.py::SyntheticSlideSource``), numpy only.
+"""Procedural slide sources (the JAX package's ``data/synthetic.py``):
+:class:`SyntheticSlideSource`, made on the host with numpy, and
+:class:`DeviceSlideSource`, made on the device with torch.
 
-The source the timed whole-slide run and the band-input tests read: a
+The sources the timed whole-slide run and the band-input tests read: a
 40k×40k slide streams through the sliding-window runners without the slide
 (4.8 GB) ever existing in host RAM.
 """
@@ -9,9 +10,39 @@ The source the timed whole-slide run and the band-input tests read: a
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from pdac_pathological_image_segmentation_tpu_torch import resolve_device
 
 
-class SyntheticSlideSource:
+class _SlideGrid:
+    """The window grid both sources share: ``coords`` (stride ``stride``,
+    the last window flush with the edge), ``canvas_hw``, ``len()`` and
+    ``get(i) → (tile_u8 numpy, (y, x))`` over the subclass's
+    ``read_region``."""
+
+    def __init__(self, size: int, tile: int, stride: int | None) -> None:
+        self.size = size
+        self.tile = tile
+        self.stride = stride or tile
+        ys = list(range(0, max(size - tile, 0) + 1, self.stride))
+        if ys and ys[-1] != size - tile and size > tile:
+            ys.append(size - tile)
+        self.coords = [(y, x) for y in ys for x in ys]
+        self.canvas_hw = (size, size)
+
+    def __len__(self) -> int:
+        return len(self.coords)
+
+    def get(self, i: int):
+        y, x = self.coords[i]
+        tile = self.read_region(y, x, self.tile, self.tile)
+        if isinstance(tile, torch.Tensor):
+            tile = tile.cpu().numpy()
+        return tile, (y, x)
+
+
+class SyntheticSlideSource(_SlideGrid):
     """Procedural gigapixel-slide tile source — O(1) memory.
 
     The virtual slide is a grid of ``tile``-sized cells, each generated
@@ -29,24 +60,14 @@ class SyntheticSlideSource:
 
     def __init__(self, size: int, tile: int = 512, stride: int | None = None,
                  seed: int = 0, background_fraction: float = 0.3) -> None:
-        self.size = size
-        self.tile = tile
-        self.stride = stride or tile
+        super().__init__(size, tile, stride)
         self.seed = seed
         self.background_fraction = background_fraction
-        ys = list(range(0, max(size - tile, 0) + 1, self.stride))
-        if ys and ys[-1] != size - tile and size > tile:
-            ys.append(size - tile)
-        self.coords = [(y, x) for y in ys for x in ys]
-        self.canvas_hw = (size, size)
         # overlapping windows / bands touch each cell up to ~9×; a small
         # FIFO cache keeps regeneration off the repeat touches without
         # holding more than a couple of band-rows of cells
         self._cell_cache: dict = {}
         self._cell_cache_cap = max(4 * (size // tile + 2), 64)
-
-    def __len__(self) -> int:
-        return len(self.coords)
 
     def _cell(self, iy: int, ix: int) -> np.ndarray:
         """The (tile×tile×3) uint8 cell at cell-grid indices (iy, ix)."""
@@ -97,6 +118,40 @@ class SyntheticSlideSource:
                     cell[y0 - iy * t:y1 - iy * t, x0 - ix * t:x1 - ix * t]
         return out
 
-    def get(self, i: int):
-        y, x = self.coords[i]
-        return self.read_region(y, x, self.tile, self.tile), (y, x)
+
+class DeviceSlideSource(_SlideGrid):
+    """Procedural slide whose bands are made on the device: no host read
+    and no upload.  The JAX ``DeviceSlideSource``'s field, an elementwise
+    float32 function of the global pixel coordinates (a smooth H&E-like
+    field and a ripple), so overlapping reads agree exactly;
+    ``read_region(y, x, h, w)`` returns the uint8 ``(h, w, 3)`` tensor on
+    ``device`` (default ``"cuda"``, which raises without a card), which the
+    banded runner takes without a copy.  ``sin``/``cos`` may differ from
+    XLA's by an ulp and the cast truncates, so its pixels equal the JAX
+    source's within one level."""
+
+    def __init__(self, size: int, tile: int = 512,
+                 stride: int | None = None, seed: int = 0,
+                 device="cuda") -> None:
+        super().__init__(size, tile, stride)
+        self.seed = seed
+        self.device = resolve_device(device)
+
+    def read_region(self, y: int, x: int, h: int, w: int) -> torch.Tensor:
+        """(h, w, 3) uint8 tensor on the device at pixel (y, x), made on
+        the current stream."""
+        dev, f32 = self.device, torch.float32
+        yy = (torch.arange(h, dtype=f32, device=dev)
+              + float(y)).view(h, 1, 1)
+        xx = (torch.arange(w, dtype=f32, device=dev)
+              + float(x)).view(1, w, 1)
+        phase = torch.tensor([0.0, 2.1, 4.2], dtype=f32,
+                             device=dev) + float(self.seed)
+        base = torch.tensor([225.0, 170.0, 195.0], dtype=f32, device=dev)
+        # the JAX expression, operation for operation
+        v = (base
+             + 18.0 * torch.sin(yy / 97.0 + phase) * torch.cos(xx / 89.0)
+             - 60.0 * torch.clamp_min(
+                 torch.sin(yy / 253.0 + phase) * torch.sin(xx / 241.0)
+                 - 0.6, 0.0) * 2.5)
+        return torch.clamp(v, 0, 255).to(torch.uint8)

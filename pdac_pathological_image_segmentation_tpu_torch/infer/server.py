@@ -165,6 +165,7 @@ class MicroBatcher:
             out = dict(self._stats)
             lats = sorted(self._latencies)
         out["buckets"] = list(self.buckets)
+        out["int8"] = bool(self.artifact.meta.get("int8"))
         if out["batches"]:
             out["mean_batch_occupancy"] = (
                 out["requests"] / out["batched_tiles"]

@@ -15,9 +15,11 @@ Supersedes the reference's missing ``visualize/predict_overlay.ipynb``
 
 Tile sources: :class:`GridTiler` (an in-memory slide),
 :class:`PyHISTTileSource` (the reference's tile PNGs + ``tile_selection.tsv``),
-``data.tiffslide.TiffSlideSource`` and ``data.synthetic.SyntheticSlideSource``.
-A source has ``len()``, ``get(i) → (tile_u8, (y, x))`` and ``canvas_hw``;
-``read_region(y, x, h, w)`` lets the banded runner upload whole bands.
+``data.tiffslide.TiffSlideSource`` and ``data.synthetic.SyntheticSlideSource``
+(host) and ``DeviceSlideSource`` (made on the device).  A source has
+``len()``, ``get(i) → (tile_u8, (y, x))`` and ``canvas_hw``;
+``read_region(y, x, h, w)`` lets the banded runner upload whole bands (a
+numpy band) or take them as they are (a tensor on the runner's device).
 """
 
 from __future__ import annotations
@@ -321,7 +323,9 @@ class BandedSlidingWindow:
     ``read_region(y, x, h, w)``): each band's pixels are uploaded once,
     through pinned memory on a side stream, and the windows are cut out on
     the device with one gather a batch.  The next band's read and upload
-    run while the current band computes.  A batch shorter than
+    run while the current band computes.  A source whose bands are tensors
+    on the runner's device (``DeviceSlideSource``) makes them on the side
+    stream and uploads nothing.  A batch shorter than
     ``batch_size`` is padded with windows at (0, 0), whose probabilities are
     dropped before stitching.
 
@@ -393,22 +397,40 @@ class BandedSlidingWindow:
             else:
                 yield out[:k], local[:k]
 
+    def _band_tensor(self, region) -> tuple:
+        """``(band on the runner's device, bytes uploaded)``: a tensor
+        already there is taken as it is, a numpy band goes up through
+        pinned memory, a tensor on another device raises."""
+        if torch.is_tensor(region):
+            if region.device != self.device:
+                raise ValueError(
+                    f"read_region gave a band on {region.device}; the runner "
+                    f"runs on {self.device}")
+            return region, 0
+        return (host_to_device(torch.from_numpy(region), self.device),
+                region.nbytes)
+
     def _fetch_band(self, source, y0: int, rows: int, w: int):
-        """Read a band on the host and start its upload on the side stream;
-        ``(band, host seconds, the copy's (start, end) events or None)``.
+        """Read a band and start its upload (or, for a source that makes
+        its bands on the device, make it) on the side stream; ``(band, host
+        seconds, the copy's (start, end) events or None, bytes uploaded)``.
         Runs on the prefetch thread."""
         t0 = time.perf_counter()
-        host = torch.from_numpy(source.read_region(y0, 0, rows, w))
-        read_s = time.perf_counter() - t0
         if self.device.type != "cuda":
-            return host, read_s, None
+            region = source.read_region(y0, 0, rows, w)
+            band, nbytes = self._band_tensor(region)
+            return band, time.perf_counter() - t0, None, nbytes
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         with torch.cuda.stream(self._copy_stream):
             start.record()
-            band = host_to_device(host, self.device)
+            region = source.read_region(y0, 0, rows, w)
+            read_s = time.perf_counter() - t0
+            if not torch.is_tensor(region):
+                start.record()  # the host's read is not the copy's time
+            band, nbytes = self._band_tensor(region)
             end.record()
-        return band, read_s, (start, end)
+        return band, read_s, (start, end), nbytes
 
     @torch.inference_mode()
     def run(self, source, prob_dtype=np.float16) -> Tuple[np.ndarray, ...]:
@@ -475,9 +497,9 @@ class BandedSlidingWindow:
             for b in range(n_bands):
                 y0 = b * band_h
                 if use_band and per_band[b]:
-                    band, read_s, events = futures.pop(b).result()
+                    band, read_s, events, nbytes = futures.pop(b).result()
                     stats["band_read_s"] += read_s
-                    stats["band_upload_bytes"] += band.numel()
+                    stats["band_upload_bytes"] += nbytes
                     if events is not None:
                         # the compute stream waits for the copy, and the
                         # allocator keeps the band until compute is done

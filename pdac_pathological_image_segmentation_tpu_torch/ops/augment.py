@@ -16,8 +16,9 @@ the chain and the kernel consume.  Every function takes injected tables,
 so tests can feed it the JAX package's draws.
 
 :func:`train_transform` is the plain version of the fused kernel
-(``ops/fused_augment.py``).  ``parity_mode`` (jitter on normalized floats)
-and stain normalization are not ported and raise.
+(``ops/fused_augment.py``).  Stain normalization (``ops/stain.py``) runs in
+the eval chain (:func:`eval_images`); ``parity_mode`` (jitter on
+normalized floats) and stain in the train chain are not ported and raise.
 """
 
 from __future__ import annotations
@@ -37,6 +38,10 @@ from pdac_pathological_image_segmentation_tpu_torch.ops.resize import (
     resize_bilinear,
     resize_nearest,
 )
+from pdac_pathological_image_segmentation_tpu_torch.ops.stain import (
+    apply_stain_batch,
+    check_method,
+)
 
 _MEAN = np.asarray(IMAGENET_MEAN, np.float32)
 _STD = np.asarray(IMAGENET_STD, np.float32)
@@ -51,13 +56,15 @@ _ONES_W = np.ones((3, 1), np.float32) @ _GRAY_W[None, :]  # rows = w_gray
 _NOT_PORTED = {
     "parity_mode": "parity_mode (jitter on normalized floats, no clip) is "
                    "not ported yet (ROADMAP.md Queue 1, item 4)",
-    "stain": "stain normalization is not ported yet (ROADMAP.md Queue 1, "
-             "item 4)",
+    "stain": "stain normalization in training is not ported yet: the JAX "
+             "train step sends it through the non-fused train_transform, "
+             "which waits with fused_augment: false (ROADMAP.md Queue 1, "
+             "item 4); serving, evaluation and whole slides take it",
 }
 
 
 def check_supported(parity_mode: bool = False, stain: str = "none") -> None:
-    """Raise for the augmentation options the port does not have."""
+    """Raise for the train-chain options the port does not have."""
     if parity_mode:
         raise NotImplementedError(_NOT_PORTED["parity_mode"])
     if stain != "none":
@@ -185,11 +192,17 @@ def eval_images(images: torch.Tensor, img_size: int,
                 ) -> torch.Tensor:
     """The image half of :func:`eval_transform`: (N,H,W,3) uint8 → ``dtype``
     (N,3,S,S) normalized images (bilinear f32 resize where the size
-    differs)."""
-    check_supported(stain=stain)
+    differs).  ``stain`` (``none``, ``reinhard`` or ``macenko``) is the JAX
+    ``eval_transform``'s hook: after the resize, ``apply_stain_batch(x /
+    255, stain) · 255`` in float32, then the normalize."""
+    check_method(stain)
     x = images.permute(0, 3, 1, 2)
     if tuple(x.shape[-2:]) != (img_size, img_size):
         x = resize_bilinear(x.float(), img_size, img_size)
+    if stain != "none":
+        c255 = torch.full((1,), 255.0, dtype=torch.float32, device=x.device)
+        x01 = x.float().permute(0, 2, 3, 1) / c255
+        x = (apply_stain_batch(x01, stain) * c255).permute(0, 3, 1, 2)
     return normalize(x, dtype).contiguous()
 
 

@@ -32,6 +32,9 @@ from pdac_pathological_image_segmentation_tpu_torch.ops.fused_augment import (
 from pdac_pathological_image_segmentation_tpu_torch.ops.resize import (
     resize_bilinear,
 )
+from pdac_pathological_image_segmentation_tpu_torch.ops.stain import (
+    check_method,
+)
 from pdac_pathological_image_segmentation_tpu_torch.train.objective import (
     Objective,
 )
@@ -150,8 +153,9 @@ def make_infer_step(model: nn.Module, img_size: int, stain: str = "none"):
 
     On torchvision's 3×7×7 stem (the ResNet encoders) the normalize's scale
     is folded into the stem weight and only the mean shift is applied to
-    the input; every other stem (MobileNetV2's, EfficientNet's) gets
-    ``eval_images`` in the compute dtype, as the JAX step does there.
+    the input; every other stem (MobileNetV2's, EfficientNet's), and every
+    model under ``stain`` (``reinhard`` or ``macenko``, ``ops/stain.py``),
+    gets ``eval_images`` in the compute dtype, as the JAX step does there.
 
     ``images_u8`` is a uint8 ``(N, H, W, 3)`` tensor on the model's device.
     Tiles of another size are resized to ``img_size`` (float32 bilinear,
@@ -159,13 +163,12 @@ def make_infer_step(model: nn.Module, img_size: int, stain: str = "none"):
     probabilities; multi-class models ``(N, H, W, C)`` softmax ones.  A
     model with a bfloat16 head (``head_dtype``) gives bf16 logits, whose
     sigmoid is taken in float32 here (the JAX step takes it in bf16)."""
-    if stain != "none":
-        raise NotImplementedError(
-            f"stain={stain!r} is not ported yet (ROADMAP.md Queue 1, item 4)")
+    check_method(stain)
     dtype = getattr(model, "compute_dtype", torch.float32)
-    # the JAX _can_fold_stem: torchvision's 3x7x7 encoder.conv1 only
+    # the JAX rule: no stain, and torchvision's 3x7x7 encoder.conv1 only
     stem = dict(model.named_parameters()).get(STEM)
-    fold = stem is not None and tuple(stem.shape[1:]) == (3, 7, 7)
+    fold = stain == "none" and stem is not None \
+        and tuple(stem.shape[1:]) == (3, 7, 7)
     m255 = torch.as_tensor(
         (255.0 * np.asarray(IMAGENET_MEAN)).astype(np.float32))
 
@@ -184,7 +187,7 @@ def make_infer_step(model: nn.Module, img_size: int, stain: str = "none"):
     def step(images: torch.Tensor) -> torch.Tensor:
         model.eval()
         out = (folded_forward(images) if fold
-               else model(eval_images(images, img_size, dtype)))
+               else model(eval_images(images, img_size, dtype, stain)))
         if getattr(model, "num_classes", 1) > 1:
             return torch.softmax(out.float(), dim=1).permute(0, 2, 3, 1)
         return torch.sigmoid(out[:, 0].float())

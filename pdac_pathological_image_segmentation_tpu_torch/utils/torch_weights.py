@@ -13,6 +13,7 @@ the JAX package's parameter trees (as numpy arrays) into the port's
 ``convert_smp_pspnet_state_dict`` and of the three encoder converters they
 dispatch to, and, for U-Net++ (which has no reference checkpoint, so no
 converter there), the map from the flax tree to the port's mirror of it.
+:func:`quantized_bundle_from_jax` carries a JAX int8 bundle across.
 """
 
 from __future__ import annotations
@@ -308,6 +309,24 @@ def unetplusplus_state_dict_from_jax(params: Mapping[str, Any],
             _bn(sd, f"{name}.bn{i}", p[f"bn{i}"], s[f"bn{i}"])
     _conv(sd, "head", params["head"], bias=True)
     return sd
+
+
+def quantized_bundle_from_jax(bundle: Mapping[str, Any]) -> dict:
+    """A JAX int8 bundle (``infer/quantized.py``: per site an HWIO int8
+    kernel and its per-output-channel scales, per site an activation scale)
+    → the port's: ``(F, KH, KW, C)`` int8 kernels and float32 scales on
+    the CPU, the activation scales as floats, under the same site names."""
+    qweights = {}
+    for site, (kq, ks) in bundle["qweights"].items():
+        k = np.asarray(kq)
+        if k.dtype != np.int8:
+            raise TypeError(f"{site}: expected an int8 kernel, got {k.dtype}")
+        qweights[site] = (
+            torch.from_numpy(np.ascontiguousarray(k.transpose(3, 0, 1, 2))),
+            torch.from_numpy(np.asarray(ks, np.float32).copy()))
+    return {"qweights": qweights,
+            "act_scales": {k: float(v)
+                           for k, v in bundle["act_scales"].items()}}
 
 
 def drop_unbuilt_keys(model: torch.nn.Module,

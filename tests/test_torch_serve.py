@@ -327,13 +327,136 @@ def test_cli_export_refuses_flags_it_cannot_honour(flag, tmp_path, capsys):
 
 
 def test_int8_and_stain_raise(weights, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """int8 export without calibration batches, at another tile than the
+    one it calibrates at, or for a model with no int8 path raises; so does
+    an unknown stain method."""
+    with pytest.raises(ValueError, match="calibration batches"):
         export_serving_artifact(_cfg(), weights, str(tmp_path / "a"),
-                                int8=True)
+                                int8=True, device="cpu")
+    calib = [np.zeros((2, TILE, TILE, 3), np.uint8)]
+    with pytest.raises(ValueError, match="cfg.img_size"):
+        export_serving_artifact(_cfg(), weights, str(tmp_path / "a"),
+                                tile=2 * TILE, int8=True,
+                                calib_batches=calib, device="cpu")
+    cfg = Config(model="unet++", img_size=TILE, compute_dtype="float32")
+    with pytest.raises(ValueError, match="no int8 path"):
+        export_serving_artifact(
+            cfg, seeded_state_dict(build_model(cfg), seed=1),
+            str(tmp_path / "b"), int8=True, calib_batches=calib,
+            device="cpu")
     cfg = _cfg()
-    cfg.stain = "macenko"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        export_serving_artifact(cfg, weights, str(tmp_path / "b"))
+    cfg.stain = "vahadane"
+    with pytest.raises(ValueError, match="stain"):
+        export_serving_artifact(cfg, weights, str(tmp_path / "c"))
+        load_serving_artifact(str(tmp_path / "c"), device="cpu")
+    assert not (tmp_path / "a").exists()
+
+
+# -- int8 and stain artifacts -------------------------------------------------
+
+CALIB = np.random.default_rng(21).integers(0, 256, (4, TILE, TILE, 3),
+                                           dtype=np.uint8)
+
+
+@pytest.fixture(scope="module")
+def int8_artifact(weights, artifact_path, tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("int8") / "model.pdacpt")
+    size = export_serving_artifact(_cfg(), weights, path, int8=True,
+                                   calib_batches=[CALIB], device="cpu")
+    return path, size
+
+
+def test_int8_artifact_equals_in_process_step(weights, int8_artifact,
+                                              artifact_path):
+    """Export → load gives the in-process quantized step bit for bit, the
+    payload holds int8 kernels and none of their float copies, and the
+    file is well under the float artifact's size."""
+    from pdac_pathological_image_segmentation_tpu_torch.infer import (
+        quantized as q,
+    )
+
+    path, size = int8_artifact
+    art = load_serving_artifact(path, device="cpu")
+    assert art.meta["int8"] is True and art.meta["act_storage"] == "int8"
+    model = build_model(_cfg())
+    model.load_state_dict(weights, strict=True)
+    sd = model.state_dict()
+    bundle, forward = q.quantize_from_config(_cfg(), sd, [CALIB])
+    tiles = np.random.default_rng(22).integers(0, 256, (3, TILE, TILE, 3),
+                                               dtype=np.uint8)
+    want = q.make_quantized_infer_step(sd, bundle, TILE, forward)(tiles)
+    np.testing.assert_array_equal(art(tiles), want.numpy())
+    meta, payload = read_artifact(path)
+    sites = q.SITES["fpn"](sd)
+    assert set(payload["qweights"]) == set(sites)
+    assert all(kq.dtype == torch.int8
+               for kq, _ in payload["qweights"].values())
+    assert not {key for key, _ in sites.values()} & set(payload["state_dict"])
+    assert size < 0.4 * len(open(artifact_path, "rb").read())
+
+
+def test_int8_daemon_serves_the_artifact(int8_artifact):
+    art = load_serving_artifact(int8_artifact[0], device="cpu")
+    srv = _serve(SegmentationServer(("127.0.0.1", 0), art, buckets=(1, 2),
+                                    max_wait_ms=5.0))
+    try:
+        img = np.random.default_rng(23).integers(0, 256, (TILE, TILE, 3),
+                                                 dtype=np.uint8)
+        headers = {**RAW, "Accept": "application/octet-stream"}
+        got = _raw_probs(_post(srv, img.tobytes(), headers))
+        with urllib.request.urlopen(_url(srv, "/v1/stats"), timeout=30) as r:
+            stats = json.loads(r.read())
+    finally:
+        srv.shutdown()
+    np.testing.assert_array_equal(got, art(img[None])[0])
+    assert stats["int8"] is True and stats["requests"] == 1
+
+
+def test_cli_export_int8_with_calib_path(weights, int8_artifact, tmp_path,
+                                         capsys):
+    """``cli.export --int8 --calib_path`` calibrates on the directory's
+    first patches: the same artifact as the direct export on them."""
+    from PIL import Image
+
+    calib_dir = tmp_path / "calib"
+    calib_dir.mkdir()
+    for i, img in enumerate(CALIB):
+        Image.fromarray(img).save(calib_dir / f"p{i}.png")
+        Image.fromarray(np.zeros((TILE, TILE), np.uint8)).save(
+            calib_dir / f"p{i}_labelled.png")
+    cfg_path = tmp_path / "cfg.yaml"
+    cfg_path.write_text(yaml.safe_dump(
+        {"model": "fpn", "backbone": "resnet18", "img_size": TILE,
+         "compute_dtype": "float32", "test_path": str(tmp_path / "none")}))
+    pth = tmp_path / "best.pth"
+    torch.save({"model": dict(weights)}, pth)
+    out = tmp_path / "cli.pdacpt"
+    res = cli_export.main(["--config", str(cfg_path), "--pth_path", str(pth),
+                           "--out", str(out), "--int8", "--calib_path",
+                           str(calib_dir), "--device", "cpu"])
+    assert "int8" in capsys.readouterr().out
+    assert res["bytes"] == out.stat().st_size
+    tiles = np.random.default_rng(24).integers(0, 256, (2, TILE, TILE, 3),
+                                               dtype=np.uint8)
+    np.testing.assert_array_equal(
+        load_serving_artifact(str(out), device="cpu")(tiles),
+        load_serving_artifact(int8_artifact[0], device="cpu")(tiles))
+
+
+@pytest.mark.parametrize("method", ["reinhard", "macenko"])
+def test_stain_artifact_serves_the_stained_step(weights, tmp_path, method):
+    cfg = _cfg()
+    cfg.stain = method
+    path = str(tmp_path / "stain.pdacpt")
+    export_serving_artifact(cfg, weights, path)
+    art = load_serving_artifact(path, device="cpu")
+    assert art.meta["stain"] == method
+    model = build_model(_cfg())
+    model.load_state_dict(weights, strict=True)
+    tiles = np.random.default_rng(25).integers(0, 256, (2, TILE, TILE, 3),
+                                               dtype=np.uint8)
+    want = make_infer_step(model, TILE, stain=method)(torch.from_numpy(tiles))
+    np.testing.assert_array_equal(art(tiles), want.numpy())
 
 
 def test_loaders_refuse_each_others_artifacts(artifact_path, tmp_path):

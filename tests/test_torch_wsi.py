@@ -21,6 +21,7 @@ CPU: ``ops/stitch.py``, ``ops/tissue.py``, ``data/synthetic.py``,
   to the stated composite; the flags that are not ported raise.
 """
 
+import contextlib
 import json
 import os
 from collections import namedtuple
@@ -56,6 +57,7 @@ from pdac_pathological_image_segmentation_tpu_torch.cli import (
     overlay as cli_overlay,
 )
 from pdac_pathological_image_segmentation_tpu_torch.data.synthetic import (
+    DeviceSlideSource,
     SyntheticSlideSource,
 )
 from pdac_pathological_image_segmentation_tpu_torch.data.tiffwriter import (
@@ -222,6 +224,37 @@ def test_synthetic_source_equals_jax():
                                                          x:x + TILE])
 
 
+def test_device_source_reads_agree_and_match_jax():
+    """Overlapping reads equal bit for bit; against the JAX source within
+    one level everywhere (sin/cos may differ by an ulp and the cast
+    truncates) and equal on at least 99.9% of the values."""
+    ours = DeviceSlideSource(size=300, tile=TILE, stride=24, seed=3,
+                             device="cpu")
+    ref = jax_synthetic.DeviceSlideSource(size=300, tile=TILE, stride=24,
+                                          seed=3)
+    assert ours.coords == ref.coords and ours.canvas_hw == ref.canvas_hw
+    whole = ours.read_region(0, 0, 300, 300)
+    assert whole.dtype == torch.uint8 and tuple(whole.shape) == (300, 300, 3)
+    part = ours.read_region(37, 45, 64, 150)
+    assert torch.equal(whole[37:101, 45:195], part)
+    y, x = ours.coords[9]
+    np.testing.assert_array_equal(ours.get(9)[0],
+                                  whole[y:y + TILE, x:x + TILE].numpy())
+    for args in ((0, 0, 300, 300), (40_000, 39_000, 48, 64)):
+        got = ours.read_region(*args).numpy().astype(np.int16)
+        want = np.asarray(ref.read_region(*args)).astype(np.int16)
+        assert np.abs(got - want).max() <= 1
+        assert np.mean(got == want) >= 0.999
+    with pytest.raises(RuntimeError, match="no CUDA device") \
+            if not torch.cuda.is_available() else _no_raise():
+        DeviceSlideSource(size=64)
+
+
+@contextlib.contextmanager
+def _no_raise():
+    yield
+
+
 def _pyhist_dir(root, rng):
     tile_dir = root / "tiles"
     tile_dir.mkdir()
@@ -343,6 +376,39 @@ def test_banded_matches_jax(fpn, band_input):
     assert runner.last_run["bands"] == (bands if band_input else 0)
     assert runner.last_run["band_upload_bytes"] == (
         bands * (40 + TILE) * 120 * 3 if band_input else 0)
+
+
+def test_banded_on_device_source_equals_grid_tiler_run(fpn):
+    """Bands made by ``DeviceSlideSource`` go through the runner untouched
+    (no upload bytes) and give the run on a ``GridTiler`` of the same
+    pixels bit for bit; a band on another device is refused."""
+    model = fpn[0]
+    src = DeviceSlideSource(size=100, tile=TILE, stride=24, seed=5,
+                            device="cpu")
+    grid = wsi.GridTiler(src.read_region(0, 0, 100, 100).numpy(), tile=TILE,
+                         stride=24)
+    assert grid.coords == src.coords
+    runs = []
+    for source in (src, grid):
+        runner = wsi.BandedSlidingWindow(model, tile=TILE, batch_size=4,
+                                         band_h=40, blend="hann",
+                                         num_workers=1)
+        runs.append((runner.run(source), runner.last_run))
+    (got, stats), (want, gstats) = runs
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    # tiles start at rows 0, 24, 48 and 68: two bands of 40 rows hold them
+    assert stats["band_upload_bytes"] == 0 and stats["bands"] == 2
+    assert gstats["band_upload_bytes"] > 0
+
+    class Elsewhere(DeviceSlideSource):
+        def read_region(self, y, x, h, w):
+            return torch.empty((h, w, 3), dtype=torch.uint8, device="meta")
+
+    with pytest.raises(ValueError, match="band on meta"):
+        wsi.BandedSlidingWindow(model, tile=TILE, batch_size=4, band_h=40,
+                                num_workers=1).run(
+            Elsewhere(size=100, tile=TILE, stride=24, device="cpu"))
 
 
 def test_banded_uncertainty_matches_jax_and_plain(fpn):
@@ -583,9 +649,63 @@ def test_cli_overlay_threshold_auto_calibrates_on_val(cli_run, tmp_path,
         float((p >= out["threshold"]).mean()))
 
 
+@pytest.mark.parametrize("extra", [
+    [], ["--slide", "SLIDE", "--stride", "16", "--banded", "--band_h", "40",
+         "--tta"]])
+def test_cli_overlay_int8_matches_jax(cli_run, extra):
+    """``--int8`` (calibrated on the first tissue tiles) against the JAX
+    ``cli.overlay.main --int8`` on the same ``best.pth``: masks ≥ 99%
+    equal, probabilities within 0.02 (the JAX path is jitted: its FMAs and
+    reciprocal multiplies move int8 roundings, ``test_torch_quantized.py``),
+    the tumor fractions within 1%."""
+    extra = [str(cli_run / "slide.tiff") if a == "SLIDE" else a
+             for a in extra]
+    ours, ref, out, jout = _both(cli_run, "int8" + str(len(extra)),
+                                 ["--int8"] + extra)
+    p = np.load(out / "probability_map.npy").astype(np.float32)
+    jp = np.load(jout / "probability_map.npy").astype(np.float32)
+    assert p.shape == jp.shape and ours["n_tiles"] == ref["n_tiles"]
+    np.testing.assert_allclose(p, jp, rtol=0, atol=2e-2)
+    assert np.mean((p >= 0.5) == (jp >= 0.5)) >= 0.99
+    assert abs(ours["tumor_fraction"] - ref["tumor_fraction"]) < 0.01
+    plain = cli_overlay.main(["--config", str(cli_run / "cfg.yaml"),
+                              "--pth_path", str(cli_run / "pth"), "--device",
+                              "cpu", "--save_path",
+                              str(cli_run / f"f32_{len(extra)}")] + extra)
+    assert plain["n_tiles"] == ours["n_tiles"]
+
+
+def test_cli_overlay_int8_refusals(cli_run, tmp_path):
+    base = ["--config", str(cli_run / "cfg.yaml"), "--device", "cpu",
+            "--save_path", str(tmp_path / "o"), "--int8"]
+    with pytest.raises(SystemExit, match="artifact"):
+        cli_overlay.main(base + ["--artifact", str(tmp_path / "a.pdacpt")])
+    # a PyHIST selection that keeps no tile
+    tsv = tmp_path / "none_kept.tsv"
+    rows = (cli_run / "tile_selection.tsv").read_text().splitlines()
+    tsv.write_text("\n".join([rows[0]] + [r.rsplit("\t", 1)[0] + "\t0"
+                                           for r in rows[1:]]) + "\n")
+    for key, value, match in (("model", "unet++", "supports models"),
+                              ("backbone", "resnet34", "resnet18"),
+                              ("tsv_path", str(tsv), "tissue filter")):
+        raw = yaml.safe_load((cli_run / "cfg.yaml").read_text())
+        raw[key] = value
+        cfg = tmp_path / f"{key}.yaml"
+        cfg.write_text(yaml.safe_dump(raw))
+        pth = cli_run / "pth"
+        if key != "tsv_path":
+            model = build_model(Config.from_dict(raw))
+            pth = tmp_path / f"{key}.pth"
+            torch.save({"model": model.state_dict()}, pth)
+        with pytest.raises(SystemExit, match=match):
+            cli_overlay.main(["--config", str(cfg), "--device", "cpu",
+                              "--save_path", str(tmp_path / key),
+                              "--pth_path", str(pth), "--int8"])
+
+
 @pytest.mark.parametrize("flags,match", [
     (["--sharded"], "ROADMAP.md"),
-    (["--int8"], "ROADMAP.md"),
+    (["--sharded", "--int8"], "ROADMAP.md"),
 ])
 def test_cli_overlay_unported_flags_raise(cli_run, flags, match):
     with pytest.raises(NotImplementedError, match=match):
