@@ -43,11 +43,16 @@ Phases, each of which fails the run (exit code 1) on any error:
      DeepLabV3+, ResUNet and PSPNet at 512² and batch 32, operands
      recorded from one forward of each with seeded weights, with
      ``torch._int_mm`` on the same bytes for the 1×1 sites and cuDNN's
-     bf16 conv of the same shape as yardsticks; after the int8 main paths
-     of phase 10, the same at every other key they launched it under
+     bf16 conv of the same shape as yardsticks, and the kernel's time in
+     its earlier mma.sync design beside each row where that design had the
+     key (``scripts/int8_conv_mma_sync_ms.json``); after the int8 main
+     paths of phase 10, the same at every other key they launched it under
      (shapes and epilogue: the buckets 1 and 8, the slides' batch 128 and
      last batches, ResUNet's 512); a launched key without a bitwise row
-     fails the run;
+     fails the run; then ``quantize_activation`` (``csrc/quantize.cu``)
+     bitwise against its plain version at every key the int8 main paths
+     launched it under (shape, channels, dtype, layout), with its byte
+     bound; a launched key without a row fails the run;
 
 4. serving end to end, a main path: a seeded random smp-FPN/resnet18
    reference ``.pth`` → ``cli.export`` (tile 512, bf16) → the HTTP daemon
@@ -134,7 +139,9 @@ Phases, each of which fails the run (exit code 1) on any error:
    slide (25,281 windows) from ``DeviceSlideSource`` in bf16 and int8,
    with 0 bytes uploaded.
 
-Before the ``kernels`` line a ``{"models": ...}`` line sums up the new
+Each phase ends with a ``[phase] name: seconds`` line (wall time since
+the previous one).  Before the ``kernels`` line a ``{"models": ...}`` line
+sums up the new
 models' numbers (``int8`` and ``stain`` among them) and a ``{"wsi_host":
 ..., "wsi_40k_device": ...}`` line the timed slides.  The
 line before the last is ``{"kernels": [...]}``; the last is
@@ -203,6 +210,17 @@ AUG_LAUNCHES_PER_CALL = 5
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+_PHASE_CLOCK = [time.perf_counter()]
+
+
+def phase_done(name: str) -> None:
+    """Logs the wall seconds since the previous phase ended (or the run
+    started) as ``[phase] name: s``."""
+    now = time.perf_counter()
+    log(f"[phase] {name}: {now - _PHASE_CLOCK[0]:.1f} s")
+    _PHASE_CLOCK[0] = now
 
 
 def _tag(model: str, backbone: str = "resnet18") -> str:
@@ -915,6 +933,7 @@ def _serve_http(artifact) -> dict:
     by_shape = dict(group_norm_relu.launches_by_shape)
     by_variant = dict(group_norm_relu.launches_by_variant)
     int8_launches, int8_by_shape = _int8_counts()
+    quantize_by_shape = _quantize_counts()
     # -- ... to here
     server.shutdown()
     serve_thread.join(timeout=30)
@@ -941,7 +960,8 @@ def _serve_http(artifact) -> dict:
     return {"stats": stats, "launches": launches, "by_shape": by_shape,
             "by_variant": by_variant, "http_s": http_s,
             "n_clients": n_clients, "int8_launches": int8_launches,
-            "int8_by_shape": int8_by_shape}
+            "int8_by_shape": int8_by_shape,
+            "quantize_by_shape": quantize_by_shape}
 
 
 def _serve_log(what: str, served: dict) -> str:
@@ -2304,19 +2324,63 @@ INT8_BATCH = 32  # the served bucket: the int8 kernel rows' batch
 INT8_OPS_PER_MAC = 2
 INT8_PEAK_OPS = 1.979e15  # H100 SXM dense int8, NVIDIA data sheet
 INT8_MODELS = ("fpn", "deeplabv3+", "unet", "pspnet")
+# the int8 kernel's times in its mma.sync design, by the launch key it had
+# (ms; chip_smoke.py on NVIDIA H100 80GB HBM3, 700.00 W)
+INT8_MMA_SYNC_MS = ROOT / "scripts" / "int8_conv_mma_sync_ms.json"
+QUANTIZE_SOURCE = "pdac_pathological_image_segmentation_tpu_torch/csrc/quantize.cu"
+# no TPU kernel: the JAX package's activation quantize, left to XLA
+QUANTIZE_REPLACES = "pdac_pathological_image_segmentation_tpu/infer/quantized.py:66"
+
+
+def _site_shape(key: tuple) -> tuple:
+    """The convolution a launch key computes, ``(n, h, w, c, f, kh, kw,
+    stride, pad, dilation)``: the key's own shape, except that the
+    space-to-depth stem (the only key with an asymmetric pad) is the
+    3-channel 7×7/2 convolution of the 512² tiles it came from (the main
+    paths' tiles are even-sized: ``2·h`` rows)."""
+    n, h, w, c, f, kh, kw, stride, pad, dil = key[:10]
+    if not isinstance(pad, int):
+        return n, 2 * h, 2 * w, 3, f, 7, 7, 2, 3, dil
+    return n, h, w, c, f, kh, kw, stride, pad, dil
+
+
+def _mma_sync_ms(key: tuple):
+    """The mma.sync design's ms at the site of ``key`` (None where it had
+    no row), from PR 10's final run: its key had a 16-byte-load flag where
+    this one has the piece width, and the stem the 3-channel 7×7/2 form
+    (:func:`_site_shape`).  Logged beside the new time; not a reading of
+    this run."""
+    if not hasattr(_mma_sync_ms, "rows"):
+        rows = json.loads(INT8_MMA_SYNC_MS.read_text())["rows"]
+        _mma_sync_ms.rows = {tuple(k): ms for k, ms in rows}
+    site = _site_shape(key)
+    old = (*site, *key[10:-1], key[-1] == 16 and site[3] % 16 == 0)
+    return _mma_sync_ms.rows.get(old)
 
 
 def _int8_counts(reset: bool = False) -> tuple:
     """The int8 kernel's counters ``(launches, by shape)``; with ``reset``
-    they are set to 0 first."""
+    they are set to 0 first, and the quantize kernel's with them."""
     from pdac_pathological_image_segmentation_tpu_torch.ops.int8_conv import (
         int8_conv,
+        quantize_activation,
     )
 
     if reset:
-        int8_conv.launches = 0
-        int8_conv.launches_by_shape.clear()
+        for fn in (int8_conv, quantize_activation):
+            fn.launches = 0
+            fn.launches_by_shape.clear()
     return int8_conv.launches, dict(int8_conv.launches_by_shape)
+
+
+def _quantize_counts() -> dict:
+    """The quantize kernel's launches by key (``ops.int8_conv.
+    quantize_key``) since the last ``_int8_counts(reset=True)``."""
+    from pdac_pathological_image_segmentation_tpu_torch.ops.int8_conv import (
+        quantize_activation,
+    )
+
+    return dict(quantize_activation.launches_by_shape)
 
 
 def _calib_batches(tmp: Path) -> list:
@@ -2403,12 +2467,14 @@ def _bitwise(a: torch.Tensor, b: torch.Tensor) -> bool:
     return torch.equal(a, b)
 
 
-def _axis_reads(size: int, k: int, stride: int, pad: int, dil: int,
+def _axis_reads(size: int, k: int, stride: int, pad, dil: int,
                 out: int) -> tuple:
     """Along one axis of a convolution: ``(input positions that some output
     reads, (output, tap) pairs that land inside the input)``.  A 1×1
-    stride-2 site reads every other position; a padded tap reads none."""
-    inside = [o * stride - pad + i * dil for o in range(out)
+    stride-2 site reads every other position; a padded tap reads none.
+    ``pad`` an int or ``(low, high)``."""
+    lo = pad if isinstance(pad, int) else pad[0]
+    inside = [o * stride - lo + i * dil for o in range(out)
               for i in range(k)]
     inside = [t for t in inside if 0 <= t < size]
     return len(set(inside)), len(inside)
@@ -2422,9 +2488,12 @@ def _int8_row(model: str, key: tuple, operands: tuple,
     plain version's ms, the bound and two yardsticks the port never calls:
     ``torch._int_mm`` on the same int8 bytes for the 1×1 sites
     (``library_ms``), cuDNN's bf16 ``F.conv2d`` of the same shape for every
-    site (``cudnn_bf16_ms``).  The bound counts the input pixels some output
-    reads and the taps that land inside the input.  ``quick`` times fewer
-    calls: the rows at the main paths' other batches."""
+    site (``cudnn_bf16_ms``).  The bound is the function's: the input
+    pixels some output reads and the taps that land inside the input, of
+    the convolution the key computes (:func:`_site_shape`: for the
+    space-to-depth stem the 3-channel 7×7/2 convolution, neither its zero
+    channel nor its zero taps).  ``quick`` times fewer calls: the rows at
+    the main paths' other batches."""
     from pdac_pathological_image_segmentation_tpu_torch.ops.int8_conv import (
         int8_conv,
         int8_conv_reference,
@@ -2456,21 +2525,25 @@ def _int8_row(model: str, key: tuple, operands: tuple,
     plain = cuda_ms(lambda: int8_conv_reference(*args, **kw),
                     **(dict(warmup=0, iters=1, windows=1) if quick
                        else dict(warmup=1, iters=2, windows=3)))
-    rows_h, taps_h = _axis_reads(h, kh, stride, pad, dil, oh)
-    rows_w, taps_w = _axis_reads(w, kwd, stride, pad, dil, ow)
+    _, sh, swd, sc, _, skh, skw, ss, sp, _ = _site_shape(key)
+    rows_h, taps_h = _axis_reads(sh, skh, ss, sp, dil, oh)
+    rows_w, taps_w = _axis_reads(swd, skw, ss, sp, dil, ow)
+    lo, hi = (pad, pad) if isinstance(pad, int) else pad
     res = kw.get("residual")
-    nbytes = (n * rows_h * rows_w * c + kq.numel() + 4 * f * (
+    nbytes = (n * rows_h * rows_w * sc + f * skh * skw * sc + 4 * f * (
         1 + (kw.get("scale") is not None) + (kw.get("shift") is not None))
         + got.numel() * got.element_size()
         + (0 if res is None else res.numel() * res.element_size()))
-    macs = n * taps_h * taps_w * c * f
+    macs = n * taps_h * taps_w * sc * f
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = INT8_OPS_PER_MAC * macs / INT8_PEAK_OPS * 1e3
     xb = xq.permute(0, 3, 1, 2).to(torch.bfloat16)
+    if lo != hi:  # padded beforehand, outside the timed call
+        xb, lo = torch.nn.functional.pad(xb, (lo, hi, lo, hi)), 0
     wb = kq.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(
         memory_format=torch.channels_last)
     cudnn = cuda_ms(lambda: torch.nn.functional.conv2d(
-        xb, wb, stride=stride, padding=pad, dilation=dil), **timing)
+        xb, wb, stride=stride, padding=lo, dilation=dil), **timing)
     del xb
     library = None
     if kh == kwd == 1 and pad == 0 and c % 8 == 0 and f % 8 == 0:
@@ -2484,8 +2557,9 @@ def _int8_row(model: str, key: tuple, operands: tuple,
         "replaces": INT8_REPLACES, "model": model,
         "shape": [n, h, w, c, f, kh, kwd, stride, pad, dil],
         "epilogue": dict(zip(("scale", "shift", "residual", "bias_last",
-                              "relu", "out", "nchw", "vec"), key[10:])),
+                              "relu", "out", "nchw", "piece"), key[10:])),
         "key": list(key), "max_abs_err": 0.0, "ms": ms, "device_ms": dev,
+        "mma_sync_ms": _mma_sync_ms(key),
         "plain_ms": plain, "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": library, "cudnn_bf16_ms": cudnn, "macs": macs,
@@ -2494,7 +2568,8 @@ def _int8_row(model: str, key: tuple, operands: tuple,
 
 def _log_int8_row(row: dict) -> None:
     log(f"[int8-kernel] {row['model']} {row['shape']} {row['epilogue']}: "
-        f"bitwise (sums and output); {row['ms']:.4f} ms (device "
+        f"bitwise (sums and output); {row['ms']:.4f} ms (mma.sync design "
+        f"{_ms_text(row['mma_sync_ms'])}; device "
         f"{_ms_text(row['device_ms'])}), bound {row['bound_ms']:.4f} "
         f"({row['bound_by']}), plain {row['plain_ms']:.3f}, cuDNN bf16 "
         f"{row['cudnn_bf16_ms']:.4f}, _int_mm {_ms_text(row['library_ms'])}")
@@ -2577,6 +2652,79 @@ def phase_int8_launched(int8_paths: dict, rows: list) -> list:
     return new
 
 
+def _quantize_input(key: tuple, gen: torch.Generator) -> torch.Tensor:
+    """A float input on the card in the layout of a quantize launch key
+    (``ops.int8_conv.quantize_key``), with values on the rounding ties and
+    past the clip: ``nhwc``, ``s2d`` and ``strided`` with Cout > C (a
+    channel-padded input) contiguous NHWC, ``strided`` with C = Cout the
+    NHWC view of NCHW memory."""
+    n, h, w, c, cout, dtype, layout = key
+    x = torch.randn((n, h, w, c), generator=gen, device="cuda") * 3
+    x.view(-1)[:4] = torch.tensor([0.5, 1.5, -2.5, 900.0],
+                                  device="cuda") * 0.25
+    x = x.to(getattr(torch, dtype))
+    if layout == "strided" and cout == c:
+        return x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    return x
+
+
+def phase_quantize_rows(paths: dict) -> list:
+    """The quantize kernel against its plain version on the card, bitwise,
+    at every key the int8 main paths launched it under (shape, output
+    channels, dtype, layout), with ``ms`` by CUDA events, the plain version's
+    ms and the byte bound (it reads each input element once and writes one
+    byte for each; the zero channels and edges it adds are not counted; a
+    divide and a convert an element are far below the float rate).  No
+    single PyTorch call rounds half to even and clamps to
+    ±127, so no library time.  Launches are the paths' own."""
+    from pdac_pathological_image_segmentation_tpu_torch.ops.int8_conv import (
+        quantize_activation,
+        quantize_activation_reference,
+    )
+
+    keys = sorted({k for by_shape in paths.values() for k in by_shape},
+                  key=str)
+    gen = torch.Generator(device="cuda").manual_seed(71)
+    rows = []
+    for key in keys:
+        x = _quantize_input(key, gen)
+        kw = dict(channels=key[4], space_to_depth=key[6] == "s2d")
+        got = quantize_activation(x, 0.25, **kw)
+        want = quantize_activation_reference(x, 0.25, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"quantize {key}: kernel differs from the "
+                                 "plain version")
+        ms = cuda_ms(lambda: quantize_activation(x, 0.25, **kw))
+        plain = cuda_ms(lambda: quantize_activation_reference(x, 0.25, **kw),
+                        warmup=1, iters=3, windows=3)
+        nbytes = x.numel() * (x.element_size() + 1)
+        by_path = {p: by_shape.get(key, 0) for p, by_shape in paths.items()}
+        rows.append({
+            "name": "quantize_activation", "route": "cuda",
+            "source": QUANTIZE_SOURCE, "replaces": QUANTIZE_REPLACES,
+            "shape": list(key[:4]), "key": list(key),
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": None, "bytes": nbytes})
+        log(f"[quantize] {key}: bitwise; {ms:.4f} ms, bound "
+            f"{rows[-1]['bound_ms']:.4f} (bytes), plain {plain:.4f}; "
+            f"launches {rows[-1]['launches']}")
+        del x, got, want
+    torch.cuda.empty_cache()
+    for path, by_shape in paths.items():
+        if not sum(by_shape.values()):
+            raise AssertionError(f"quantize_activation was not launched on "
+                                 f"the {path} path")
+        log(f"[quantize] {path}: {sum(by_shape.values())} launches at "
+            f"{len(by_shape)} keys; kernel "
+            f"{sum(v * r['ms'] for r in rows for k, v in by_shape.items() if tuple(r['key']) == k):.3f}"
+            f" ms in all against a bound of "
+            f"{sum(v * r['bound_ms'] for r in rows for k, v in by_shape.items() if tuple(r['key']) == k):.3f} ms")
+    return rows
+
+
 def phase_int8_serving(tmp: Path, card: str) -> dict:
     """FPN/resnet18 int8, a main path: ``cli.export --int8 --calib_path``
     on phase 5's ``best.pth`` (the 16 test patches calibrate on the card)
@@ -2644,7 +2792,9 @@ def phase_int8_serving(tmp: Path, card: str) -> dict:
     return {**direct, "latency_ms_p50": stats.get("latency_ms_p50"),
             "latency_ms_p99": stats.get("latency_ms_p99"),
             "artifact_bytes": size, "launches": launches,
-            "by_shape": by_shape, "gn_by_variant": served["by_variant"],
+            "by_shape": by_shape,
+            "quantize_by_shape": served["quantize_by_shape"],
+            "gn_by_variant": served["by_variant"],
             "card_vs_cpu_masks": cpu_agree, "vs_bf16_masks": bf16_agree}
 
 
@@ -2653,7 +2803,9 @@ def phase_int8_models(tmp: Path, card: str) -> dict:
     DeepLabV3+ and PSPNet int8 forwards at bucket 32, each from its phase-5
     ``best.pth`` calibrated on the test patches, a main path each: the
     int8 counters set to 0 just before the timed calls and read after; ms
-    by CUDA events, peak memory, masks against the bf16 model."""
+    by CUDA events, peak memory, masks against the bf16 model.  The bf16
+    forward of the same ``best.pth`` (``make_infer_step``) is timed right
+    after, on the same input, with its peak memory."""
     from pdac_pathological_image_segmentation_tpu_torch.train.steps import (
         make_infer_step,
     )
@@ -2672,21 +2824,31 @@ def phase_int8_models(tmp: Path, card: str) -> dict:
         ms = cuda_ms(lambda: step(x), warmup=1, iters=4, windows=3)
         peak = torch.cuda.max_memory_allocated()
         launches, by_shape = _int8_counts()
+        quantize_by_shape = _quantize_counts()
+        bf16 = make_infer_step(net, TILE)
+        bf16(x)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms16 = cuda_ms(lambda: bf16(x), warmup=1, iters=4, windows=3)
+        peak16 = torch.cuda.max_memory_allocated()
         p8 = step(x[:32]).float()
-        p16 = make_infer_step(net, TILE)(x[:32]).float()
+        p16 = bf16(x[:32]).float()
         agree = float(((p8 >= 0.5) == (p16 >= 0.5)).float().mean())
         if not launches or not torch.isfinite(p8).all():
             raise AssertionError(f"{model} int8: {launches} launches")
         out[model] = {"batch": batch, "ms": ms, "tiles_per_s":
                       batch * 1e3 / ms, "peak_bytes": peak,
+                      "bf16_ms": ms16, "bf16_peak_bytes": peak16,
                       "launches": launches, "by_shape": by_shape,
+                      "quantize_by_shape": quantize_by_shape,
                       "vs_bf16_masks": agree}
         log(f"[int8] {model}/resnet18 int8 forward at batch {batch}, input "
             f"on the card: {ms:.3f} ms by CUDA events, "
             f"{batch * 1e3 / ms:.1f} tiles/s, peak {peak / 2 ** 30:.2f} GiB;"
-            f" int8 kernel launches {launches}; masks vs bf16 {agree:.6f}; "
-            f"on {card}")
-        del net, step, x
+            f" bf16 forward of the same best.pth right after {ms16:.3f} ms, "
+            f"peak {peak16 / 2 ** 30:.2f} GiB; int8 kernel launches "
+            f"{launches}; masks vs bf16 {agree:.6f}; on {card}")
+        del net, step, bf16, x
         torch.cuda.empty_cache()
     return out
 
@@ -2717,6 +2879,7 @@ def phase_int8_overlay(tmp: Path) -> dict:
         str(path), "--banded", "--stride", str(WSI_STRIDE), "--blend",
         "hann", "--int8", "--save_path", str(out)])
     launches, by_shape = _int8_counts()
+    quantize_by_shape = _quantize_counts()
     gn = _gn_forward_counts()
     # -- ... to here
     prob = _check_prob_map("int8 overlay", out / "probability_map.npy",
@@ -2733,7 +2896,8 @@ def phase_int8_overlay(tmp: Path) -> dict:
         f"{frac}); int8 kernel launches {launches}, GN {gn[0]} (f32, "
         f"calibration's included)")
     return {"seconds": result["seconds"], "launches": launches,
-            "by_shape": by_shape, "gn_by_variant": gn[2]}
+            "by_shape": by_shape, "quantize_by_shape": quantize_by_shape,
+            "gn_by_variant": gn[2]}
 
 
 def _he_tiles(n: int, seed: int, size: int = TILE) -> np.ndarray:
@@ -2896,6 +3060,7 @@ def phase_wsi_device(tmp: Path, card: str, int8: bool) -> dict:
         wall = time.perf_counter() - t0
     gn = _gn_forward_counts()
     launches, by_shape = _int8_counts()
+    quantize_by_shape = _quantize_counts()
     # -- ... to here
     peak = torch.cuda.max_memory_allocated()
     tag = "int8" if int8 else "bf16"
@@ -2930,7 +3095,8 @@ def phase_wsi_device(tmp: Path, card: str, int8: bool) -> dict:
         f"device time, 0 bytes uploaded; GN launches {gn[0]}, int8 "
         f"{launches}; on {card}")
     del prob, mask
-    return {"summary": out, "by_variant": gn[2], "by_shape": by_shape}
+    return {"summary": out, "by_variant": gn[2], "by_shape": by_shape,
+            "quantize_by_shape": quantize_by_shape}
 
 
 def _seeded(model: str, backbone: str, seed: int) -> dict:
@@ -2957,43 +3123,59 @@ def main() -> int:
         print(f"chip_smoke: {PKG} not found beside this script",
               file=sys.stderr)
         return 2
-    t_start = time.perf_counter()
+    t_start = _PHASE_CLOCK[0] = time.perf_counter()
     card = phase_environment()
+    phase_done("1 environment")
     phase_build()
+    phase_done("2 build")
     kernels = phase_kernels()
+    phase_done("3 GN forward rows")
     kernels += phase_gn_backward_kernels()
+    phase_done("3 GN backward rows")
     kernels += phase_augment_kernels()
+    phase_done("3 augmentation rows")
     int8_rows = phase_int8_kernels()
+    phase_done("3 int8 rows at batch 32")
     enc_tags = [_tag(m, b) for m, b in ENCODER_PATHS]
     b7_tag = _tag("fpn", B7)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         tmp = Path(tmp)
         sd, serve_by_variant, _ = phase_serving(tmp, card)
+        phase_done("4 serving fpn")
         sd_b7, serve_b7_by_variant, serve_b7 = phase_serving(tmp, card, B7)
+        phase_done(f"4 serving {b7_tag}")
         unet = phase_unet_serving(tmp, card)
+        phase_done("4b serving unet")
         served = {m: phase_model_serving(tmp, card, m) for m in NEW_MODELS}
         served[_tag("deeplabv3+", MNV2)] = phase_model_serving(
             tmp, card, "deeplabv3+", MNV2)
         served[b7_tag] = dict(serve_b7, sd=sd_b7)
+        phase_done("4c serving the other models")
         phase_dilations_artifact(tmp)
         phase_data(tmp)
+        phase_done("4c dilations artifact, 5 data")
         train = phase_training(tmp, "fpn", pretrained=True)
         train_unet = phase_training(tmp, "unet")
         train_new = {m: phase_training(tmp, m) for m in NEW_MODELS}
         train_new.update({_tag(m, b): phase_training(tmp, m, b,
                                                      pretrained=True)
                           for m, b in ENCODER_PATHS})
+        phase_done("5 training")
         evaluation = phase_evaluation(tmp)
+        phase_done("5c evaluation")
         steps = {m: phase_timed_step(card, m) for m in MODELS}
         steps.update({_tag(m, b): phase_timed_step(card, m, b)
                       for m, b in ENCODER_PATHS})
+        phase_done("6 timed steps")
         dropout = phase_aspp_dropout()
+        phase_done("6b ASPP dropout")
         for m in MODELS:
             phase_train_card_vs_cpu(m)
         log(f"[card-vs-cpu] {b7_tag}: the train step at {B7_CPU_TILE}², cut "
             f"from {TILE}² to keep its CPU runs short")
         phase_train_card_vs_cpu("fpn", B7, B7_CPU_TILE)
         phase_train_card_vs_cpu("deeplabv3+", MNV2)
+        phase_done("7 train step card vs CPU")
         sds = {"fpn": sd, "unet": unet["sd"],
                **{m: served[m]["sd"] for m in NEW_MODELS + tuple(enc_tags)}}
         runs = ([(m, "resnet18") for m in MODELS] + list(ENCODER_PATHS)
@@ -3003,23 +3185,34 @@ def main() -> int:
             "unet++", "efficientnet-b0", seed=14)
         for m, b in runs:
             phase_card_vs_cpu(sds[_tag(m, b)], m, b)
+        phase_done("7 forward card vs CPU")
         for m, b in [(m, "resnet18") for m in MODELS] + list(ENCODER_PATHS):
             phase_bf16_vs_f32(sds[_tag(m, b)], m,
                               head="bfloat16" if m == "unet" else "float32",
                               backbone=b)
+        phase_done("8 bf16 vs f32")
         # last: its long profiled run must not disturb the phases' profiles
         wsi = phase_wsi_cli(tmp, card)
+        phase_done("9 cli.overlay")
         overlays = {"deeplabv3+": phase_model_overlay(tmp, "deeplabv3+"),
                     b7_tag: phase_model_overlay(tmp, "fpn", B7)}
+        phase_done("9b cli.overlay, other models")
         wsi_timed = phase_wsi_timed(tmp, card)
         _add_counts(wsi, wsi_timed["by_variant"])
+        phase_done("9 the 40,960² slide from the host")
         phase_wsi_card_vs_cpu(tmp)
+        phase_done("9 slides card vs CPU")
         int8_serve = phase_int8_serving(tmp, card)
+        phase_done("10 int8 serving")
         int8_models = phase_int8_models(tmp, card)
+        phase_done("10 int8 models")
         int8_overlay = phase_int8_overlay(tmp)
+        phase_done("10 cli.overlay --int8")
         stain = phase_stain_serving(tmp, card)
+        phase_done("10 stain")
         wsi_device = {tag: phase_wsi_device(tmp, card, tag == "int8")
                       for tag in ("bf16", "int8")}
+        phase_done("10 the 40,960² slide from the card")
     train_runs = {"train": train, "train_unet": train_unet,
                   **{f"train_{m}": run for m, run in train_new.items()}}
     for row in kernels:
@@ -3066,6 +3259,14 @@ def main() -> int:
             raise AssertionError(f"int8_conv was not launched on the {path} "
                                  "path")
     int8_rows += phase_int8_launched(int8_paths, int8_rows)
+    phase_done("10 int8 rows at the paths' other keys")
+    quantize_rows = phase_quantize_rows(
+        {"serve_int8": int8_serve["quantize_by_shape"],
+         "overlay_int8": int8_overlay["quantize_by_shape"],
+         "wsi_device_int8": wsi_device["int8"]["quantize_by_shape"],
+         **{f"{m}_int8": r["quantize_by_shape"]
+            for m, r in int8_models.items()}})
+    phase_done("10 quantize rows")
     for row in int8_rows:
         # launches on the int8 main paths under the row's key (one key, one
         # row)
@@ -3076,11 +3277,23 @@ def main() -> int:
     for path in int8_paths:
         on = [(r["launches_by_path"][path], r) for r in int8_rows
               if r["launches_by_path"][path]]
+        before = sum(k * r["mma_sync_ms"] for k, r in on
+                     if r["mma_sync_ms"] is not None)
         log(f"[int8-kernel] {path}: {sum(k for k, _ in on)} launches at "
             f"{len(on)} keys; kernel {sum(k * r['ms'] for k, r in on):.3f} ms"
-            f" in all against a bound of "
+            f" in all (the mma.sync design {before:.3f} ms at the "
+            f"{sum(1 for _, r in on if r['mma_sync_ms'] is not None)} keys "
+            f"it had) against a bound of "
             f"{sum(k * r['bound_ms'] for k, r in on):.3f} ms")
-    kernels += int8_rows
+    batch32 = [r for r in int8_rows if r["key"][0] == INT8_BATCH]
+    log(f"[int8-kernel] the {len(batch32)} batch-{INT8_BATCH} keys: kernel "
+        f"{sum(r['ms'] for r in batch32):.3f} ms (the mma.sync design "
+        f"{sum(r['mma_sync_ms'] or 0.0 for r in batch32):.3f} ms), bound "
+        f"{sum(r['bound_ms'] for r in batch32):.3f} ms")
+    # the mma.sync design's times are PR 10's, logged above and not
+    # readings of this run: they stay out of the kernels line
+    kernels += [{k: v for k, v in r.items() if k != "mma_sync_ms"}
+                for r in int8_rows] + quantize_rows
     # each kernel of the paths ran on them, and on each new path
     gn_paths = ("serve", "eval", "wsi", f"serve_{b7_tag}", f"eval_{b7_tag}",
                 f"wsi_{b7_tag}", "serve_int8", "overlay_int8", "serve_stain",
@@ -3103,8 +3316,10 @@ def main() -> int:
         "overlays": {k: {f: v for f, v in o.items() if f != "by_variant"}
                      for k, o in overlays.items()},
         "int8": {"fpn_serving": {k: v for k, v in int8_serve.items()
-                                 if k not in ("by_shape", "gn_by_variant")},
-                 **{m: {k: v for k, v in r.items() if k != "by_shape"}
+                                 if k not in ("by_shape", "quantize_by_shape",
+                                              "gn_by_variant")},
+                 **{m: {k: v for k, v in r.items()
+                        if k not in ("by_shape", "quantize_by_shape")}
                     for m, r in int8_models.items()},
                  "overlay_s": int8_overlay["seconds"]},
         "stain": {k: v for k, v in stain.items() if k != "gn_by_variant"},

@@ -53,6 +53,8 @@ from pdac_pathological_image_segmentation_tpu_torch.ops.int8_conv import (
     int8_conv,
     quantize_activation,
     quantize_weights,
+    space_to_depth_pad,
+    space_to_depth_weights,
 )
 from pdac_pathological_image_segmentation_tpu_torch.ops.resize import (
     resize_bilinear,
@@ -133,7 +135,7 @@ class _Ctx:
     the calibrated scales."""
 
     def __init__(self, mode: str, act_scales=None, qweights=None,
-                 act_storage: str = "bf16", affines=None):
+                 act_storage: str = "bf16", affines=None, s2d=None):
         assert mode in ("float", "int8")
         assert act_storage in ACT_STORAGES
         self.mode = mode
@@ -144,6 +146,9 @@ class _Ctx:
         self.act_scales = act_scales or {}
         self.qweights = qweights or {}
         self.affines = {} if affines is None else affines
+        # site -> (space-to-depth weights, low block padding): the stem
+        # runs on a space-to-depth input (ops/int8_conv.py)
+        self.s2d = s2d or {}
         self.stats: Dict[str, torch.Tensor] = {}
 
     def bn(self, sd, prefix: str):
@@ -192,9 +197,19 @@ class _Ctx:
         kq, ks = self.qweights[name]
         if isinstance(x, _QT):
             xq, sx = x.q, x.scale
+        elif name in self.s2d:
+            # the stem: 16-byte blocks of 2x2 pixels x 4 channels, a 4x4/1
+            # convolution with the same int32 sums
+            sx = self.act_scales[name]
+            kq2, lo = self.s2d[name]
+            xq = quantize_activation(x, sx, channels=kq2.shape[3] // 4,
+                                     space_to_depth=True)
+            pad = space_to_depth_pad(x.shape[1], kq.shape[1], pad, lo,
+                                     kq2.shape[1])
+            kq, stride = kq2, 1
         else:
             sx = self.act_scales[name]
-            xq = quantize_activation(x, sx).contiguous()
+            xq = quantize_activation(x, sx)
         res = rscale = None
         if isinstance(residual, _QT):
             res, rscale = residual.q, residual.scale
@@ -219,7 +234,7 @@ class _Ctx:
         """A float activation in the inter-site form (``conv``'s ``out``)."""
         if self.act_storage == "int8" and site is not None:
             s = self.act_scales[site]
-            return _QT(quantize_activation(y, s).contiguous(), s)
+            return _QT(quantize_activation(y, s), s)
         return y.to(self.act_dtype)
 
 
@@ -612,13 +627,15 @@ def make_quantized_infer_step(sd, bundle, output_size: int,
                          f"{act_storage!r}")
     act = {k: float(np.float32(v)) for k, v in bundle["act_scales"].items()}
     qweights = bundle["qweights"]
+    # the stem (7x7/2, pad 3) on its space-to-depth input
+    s2d = {"stem": space_to_depth_weights(qweights["stem"][0], 3)}
     dev = _device_of(sd)
     affines: dict = {}
 
     @torch.inference_mode()
     def step(images) -> torch.Tensor:
         ctx = _Ctx("int8", act_scales=act, qweights=qweights,
-                   act_storage=act_storage, affines=affines)
+                   act_storage=act_storage, affines=affines, s2d=s2d)
         return forward(ctx, sd, _images(images, dev), output_size)
 
     return step

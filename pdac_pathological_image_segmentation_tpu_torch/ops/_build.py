@@ -19,7 +19,8 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("group_norm_relu.cu", "fused_augment.cu", "int8_conv.cu")
+SOURCES = ("group_norm_relu.cu", "fused_augment.cu", "int8_conv.cu",
+           "quantize.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")

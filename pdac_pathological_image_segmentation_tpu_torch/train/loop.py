@@ -64,7 +64,8 @@ def check_supported(cfg: Config) -> None:
         raise NotImplementedError(
             f"num_devices={cfg.num_devices}: multi-device training is not "
             "ported yet (ROADMAP.md Queue 1, item 4)")
-    for knob in ("gns_every", "profile_epoch"):
+    # debug_nans: the JAX CLI traps a NaN at the op that made it
+    for knob in ("gns_every", "profile_epoch", "debug_nans"):
         if cfg.extras.get(knob):
             raise NotImplementedError(
                 f"{knob} is not ported yet (ROADMAP.md Queue 1, item 4)")

@@ -16,6 +16,17 @@ CPU, where the wrapper runs its plain version (the kernel of
 * the wrapper's refusals;
 * the launch key: one key is one instantiation at one shape (the batch,
   the epilogue and the load path all tell keys apart).
+* The quantize wrapper (``csrc/quantize.cu`` on the card): on the CPU it
+  equals the JAX quantize (``_conv_i8``'s expression on ``f32(x)``)
+  bitwise for float32 and bfloat16 input, contiguous NHWC and the NHWC view
+  of NCHW memory, and returns contiguous NHWC; its refusals (dtype, rank, a
+  device that is neither CPU nor CUDA, fewer channels); its space-to-depth
+  layout at odd sizes; its source is built; the plain int8 convolution
+  never calls it.
+* The host-side preparation the kernel needs gives the int32 sums of the
+  original operands through the plain version: the stem's space-to-depth
+  form (``space_to_depth_weights``/``space_to_depth_pad``, a zero fourth
+  channel), at even and odd sizes.
 """
 
 import jax
@@ -28,12 +39,19 @@ from pdac_pathological_image_segmentation_tpu.infer.quantized import (
     quantize_weights as jax_quantize_weights,
 )
 from pdac_pathological_image_segmentation_tpu_torch.ops import _build
+from pdac_pathological_image_segmentation_tpu_torch.ops import (
+    int8_conv as int8_module,
+)
 from pdac_pathological_image_segmentation_tpu_torch.ops.int8_conv import (
     int8_conv,
     int8_conv_reference,
     launch_key,
     quantize_activation,
+    quantize_activation_reference,
+    quantize_key,
     quantize_weights,
+    space_to_depth_pad,
+    space_to_depth_weights,
 )
 
 RNG = np.random.default_rng(11)
@@ -250,11 +268,12 @@ def test_wrapper_refusals(case, exc, match):
 
 @pytest.mark.parametrize("change", [
     "batch", "stride", "scale", "shift", "residual_int8", "residual_bf16",
-    "bias_last", "relu", "out_dtype", "nchw", "unaligned"])
+    "bias_last", "relu", "out_dtype", "nchw", "unaligned", "four_byte",
+    "asymmetric_pad"])
 def test_launch_key_tells_instantiations_apart(change):
-    """The counters key a launch by its shape, epilogue and load path, so
-    that a checked row on the card stands for exactly the launches under
-    its key."""
+    """The counters key a launch by its shape, epilogue and load path
+    (``piece_bytes``: 16-byte pieces, or none), so that a checked row on
+    the card stands for exactly the launches under its key."""
     xq, kq, sw = _valid()
     base = dict(out_dtype=torch.int8, out_scale=0.1)
     kw = dict(base)
@@ -275,10 +294,158 @@ def test_launch_key_tells_instantiations_apart(change):
     elif change == "out_dtype":
         kw["out_dtype"] = torch.float32
     elif change == "unaligned":
-        # 16-channel pixels from an offset of one byte: the byte loads
+        # 16-channel pixels from an offset of one byte: no load path (the
+        # card refuses it)
         xq = torch.zeros(1 + 8 * 8 * 16, dtype=torch.int8)[1:].view(
             1, 8, 8, 16)
+    elif change == "four_byte":
+        # 16-channel pixels from an offset of four bytes: no load path
+        # either
+        xq = torch.zeros(4 + 8 * 8 * 16, dtype=torch.int8)[4:].view(
+            1, 8, 8, 16)
+    pad = (1, 2) if change == "asymmetric_pad" else 1
     want = launch_key(*_valid()[:2], 1, 1, 1, **base)
-    got = launch_key(xq, kq, stride, 1, 1, **kw)
-    assert want[-1] is True and got != want
+    got = launch_key(xq, kq, stride, pad, 1, **kw)
+    assert want[-1] == 16 and got != want
+    if change in ("unaligned", "four_byte"):
+        assert got[-1] == 0
     assert launch_key(*_valid()[:2], 1, 1, 1, **base) == want
+
+
+# -- the quantize kernel's Python side ---------------------------------------
+
+def _activation(shape, dtype, layout):
+    """A float activation with values on the rounding ties and beyond the
+    clip, in ``layout``: contiguous NHWC or the NHWC view of NCHW memory."""
+    x = RNG.normal(0, 3, shape).astype(np.float32)
+    x.reshape(-1)[:4] = np.asarray([0.5, 1.5, -2.5, 900.0]) * 0.25
+    t = torch.from_numpy(x).to(dtype)
+    if layout == "nchw":
+        t = t.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    return t
+
+
+@pytest.mark.parametrize("layout", ["nhwc", "nchw"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_matches_jax_in_each_layout_and_dtype(dtype, layout):
+    x = _activation((2, 8, 9, 32), dtype, layout)
+    assert x.is_contiguous() == (layout == "nhwc")
+    s = np.float32(0.25)
+    # the JAX mirror quantizes f32(x) (infer/quantized.py::_Ctx.conv)
+    xj = jnp.asarray(x.float().numpy()).astype(jnp.float32)
+    want = np.asarray(jnp.clip(jnp.round(xj / s), -127, 127)
+                      .astype(jnp.int8))
+    got = quantize_activation(x, float(s))
+    assert got.dtype == torch.int8 and got.is_contiguous()
+    assert tuple(got.shape) == tuple(x.shape)
+    np.testing.assert_array_equal(got.numpy(), want)
+    # the NHWC view of NCHW memory takes the strided path
+    assert quantize_key(x)[-1] == ("nhwc" if layout == "nhwc"
+                                   else "strided")
+
+
+def test_quantize_zero_channels_and_space_to_depth():
+    """``channels`` adds zero channels; ``space_to_depth`` lays 2×2 pixels
+    side by side, channel ``(2·sh + sw)·C + c``."""
+    x = _activation((2, 6, 4, 3), torch.float32, "nhwc")
+    q = quantize_activation(x, 0.25)
+    padded = quantize_activation(x, 0.25, channels=4)
+    assert torch.equal(padded[..., :3], q) and not padded[..., 3].any()
+    s2d = quantize_activation(x, 0.25, channels=4, space_to_depth=True)
+    assert s2d.is_contiguous() and tuple(s2d.shape) == (2, 3, 2, 16)
+    for sh in range(2):
+        for sw in range(2):
+            sub = 2 * sh + sw
+            assert torch.equal(s2d[..., 4 * sub:4 * sub + 4],
+                               padded[:, sh::2, sw::2])
+    assert quantize_key(x, 4, True)[-1] == "s2d"
+    assert quantize_key(x, 4)[-1] == "strided"
+
+
+@pytest.mark.parametrize("size", [(5, 4), (4, 7), (7, 9)])
+def test_quantize_space_to_depth_zero_fills_an_odd_edge(size):
+    """At an odd height or width the last block's missing row or column is
+    zeros: the space-to-depth layout of the input padded by one zero row
+    or column."""
+    h, w = size
+    x = _activation((2, h, w, 3), torch.bfloat16, "nhwc")
+    s2d = quantize_activation(x, 0.25, channels=4, space_to_depth=True)
+    assert tuple(s2d.shape) == (2, (h + 1) // 2, (w + 1) // 2, 16)
+    even = torch.nn.functional.pad(x, (0, 0, 0, w % 2, 0, h % 2))
+    assert torch.equal(s2d, quantize_activation(
+        even, 0.25, channels=4, space_to_depth=True))
+    padded = quantize_activation(x, 0.25, channels=4)
+    for sh in range(2):
+        for sw in range(2):
+            sub = 2 * sh + sw
+            block = s2d[:, :(h - sh + 1) // 2, :(w - sw + 1) // 2,
+                        4 * sub:4 * sub + 4]
+            assert torch.equal(block, padded[:, sh::2, sw::2])
+
+
+@pytest.mark.parametrize("case,exc,match", [
+    ("dtype", TypeError, "float32 or bfloat16"),
+    ("rank", ValueError, r"\(N, H, W, C\)"),
+    ("device", ValueError, "unsupported device"),
+    ("channels", ValueError, "channels"),
+])
+def test_quantize_refusals(case, exc, match):
+    x = torch.zeros((1, 4, 4, 8))
+    kw = {}
+    if case == "dtype":
+        x = x.half()
+    elif case == "rank":
+        x = x[0]
+    elif case == "device":
+        x = torch.zeros((1, 4, 4, 8), device="meta")
+    elif case == "channels":
+        kw["channels"] = 4
+    with pytest.raises(exc, match=match):
+        quantize_activation(x, 0.1, **kw)
+
+
+def test_quantize_source_is_built_by_the_build_module():
+    assert "quantize.cu" in _build.SOURCES
+    assert (_build.CSRC / "quantize.cu").is_file()
+
+
+def test_plain_int8_conv_never_calls_the_quantize_wrapper(monkeypatch):
+    """The plain version is what the card's kernel is held against: it
+    must requantize with the plain quantize, not launch the kernel under
+    test."""
+    def refuse(*args, **kw):
+        raise AssertionError("the plain version called the wrapper")
+
+    monkeypatch.setattr(int8_module, "quantize_activation", refuse)
+    xq, kq = _operands("3x3s2")
+    out = int8_conv_reference(torch.from_numpy(xq), 0.01,
+                              torch.from_numpy(kq), torch.full((128,), 1e-3),
+                              2, 1, 1, relu=True, out_dtype=torch.int8,
+                              out_scale=0.05,
+                              residual=torch.zeros((2, 8, 8, 128)))
+    assert out.dtype == torch.int8
+    x = _activation((1, 4, 4, 8), torch.float32, "nhwc")
+    assert quantize_activation_reference(x, 0.25).dtype == torch.int8
+
+
+@pytest.mark.parametrize("size", [(64, 64), (34, 36), (20, 22), (33, 35),
+                                  (21, 20)])
+def test_space_to_depth_stem_gives_the_stem_sums(size):
+    """The 7×7/2 stem on 3 channels and the 4×4/1 convolution on its
+    space-to-depth input with the rearranged weights (a zero fourth
+    channel): the same int32 sums, at even and odd sizes."""
+    h, w = size
+    x = torch.from_numpy(RNG.normal(0, 1, (2, h, w, 3)).astype(np.float32))
+    kq = torch.from_numpy(RNG.integers(-127, 128, (64, 7, 7, 3),
+                                       dtype=np.int8))
+    ones = torch.ones(64)
+    want = int8_conv_reference(quantize_activation(x, 0.02), 1.0, kq, ones,
+                               2, 3, 1, out_dtype=torch.int32)
+    kq2, lo = space_to_depth_weights(kq, 3)
+    assert tuple(kq2.shape) == (64, 4, 4, 16) and lo == 2
+    xs = quantize_activation(x, 0.02, channels=4, space_to_depth=True)
+    pad = space_to_depth_pad(h, 7, 3, lo, 4)
+    assert pad == (2, 1)
+    got = int8_conv(xs, 1.0, kq2, ones, 1, pad, 1, out_dtype=torch.int32)
+    assert torch.equal(got, want)
+    assert launch_key(xs, kq2, 1, pad, 1)[-1] == 16

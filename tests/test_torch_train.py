@@ -95,6 +95,7 @@ from pdac_pathological_image_segmentation_tpu_torch.train.checkpoint import (
 from pdac_pathological_image_segmentation_tpu_torch.train.loop import (
     TAGS,
     Trainer,
+    check_supported,
 )
 from pdac_pathological_image_segmentation_tpu_torch.train.objective import (
     make_objective,
@@ -636,6 +637,19 @@ def test_unported_trainer_options_name_the_roadmap(knob, data_root, tmp_path):
     ds = PatchDataset(*discover_split(split), cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(cfg, str(tmp_path), ds, ds, device="cpu")
+
+
+@pytest.mark.parametrize("value", [True, False])
+def test_debug_nans_raises_until_ported(value):
+    """``debug_nans: true`` (the JAX CLI's NaN trap) raises naming the
+    roadmap instead of training without the trap; false trains."""
+    cfg = Config.from_dict({"model": "fpn", "img_size": SIZE,
+                            "debug_nans": value})
+    if value:
+        with pytest.raises(NotImplementedError, match="ROADMAP.*Queue 1"):
+            check_supported(cfg)
+    else:
+        check_supported(cfg)
 
 
 def test_trainer_initial_weights_follow_the_seed(data_root, tmp_path):
