@@ -138,6 +138,27 @@ Phases, each of which fails the run (exit code 1) on any error:
    stained pixels in float64 1e-8); the 40,960²
    slide (25,281 windows) from ``DeviceSlideSource`` in bf16 and int8,
    with 0 bytes uploaded.
+11. every training option of the JAX trainer, each a main path through
+   ``cli.train`` (phase 5's cuts; the GN and augmentation counters set to
+   0 just before and read just after, and held to the path's steps):
+   11a BASELINE.json config #2, ResUNet with 3 classes, ``stain:
+   macenko`` and softmax Dice on 3-class synthetic patches (2 epochs, a
+   resumed 3rd with ``profile_epoch`` and ``debug_nans``: the trace holds
+   CUDA kernels, ``scalars.csv`` the four tags a epoch), ``cli.test`` with
+   per-class metrics, the timed step at 128 with Macenko's own ms beside
+   it, and one f32 step card vs CPU at phase 7's bounds; 11b config #3,
+   UNet++ with 3 classes and weighted Dice + CE (fused), 2 + 1 epochs and
+   the timed step; 11c FPN with ``fused_augment: false`` and with
+   ``parity_mode`` (its resume resets the best), their timed steps beside
+   the fused one, and the non-fused chain card vs CPU (f32 1e-6, bf16 one
+   ulp and ≥ 99.9% bit-identical, masks bitwise); 11d FPN/efficientnet-b7
+   at the config's batch 128 with ``remat`` and ``grad_accum_steps: 4``:
+   a k = 4 step with remat equal to the same step without (at batch 32,
+   cuDNN deterministic; loss 1e-5, BN buffers 1e-5, twice the GN forward
+   launches, gradients within the larger of 5e-3 of their norm and twice
+   what two plain steps differ by, every parameter within 2·lr after
+   Adam), the timed step at 128, and ``cli.train``.  The non-fused paths launch
+   no augmentation kernel.
 
 Each phase ends with a ``[phase] name: seconds`` line (wall time since
 the previous one).  Before the ``kernels`` line a ``{"models": ...}`` line
@@ -152,6 +173,7 @@ package beside this file, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import functools
 import io
 import json
 import subprocess
@@ -632,15 +654,18 @@ def _augment_tables(n: int, seed: int):
                                torch.from_numpy(ints))
 
 
-def _masks(n: int, seed: int, size: int = TILE) -> np.ndarray:
-    """Filled circles, one per patch, as uint8 {0, 1}."""
+def _masks(n: int, seed: int, size: int = TILE,
+           classes: int = 1) -> np.ndarray:
+    """Filled circles, one per patch, as uint8 {0, 1}; with ``classes``
+    above 1, one circle per class id ``1..classes-1``, later ones on top."""
     rng = np.random.default_rng(seed)
     yy, xx = np.mgrid[:size, :size]
     out = np.zeros((n, size, size), np.uint8)
     for i in range(n):
-        cy, cx = rng.integers(size // 4, 3 * size // 4, 2)
-        r = rng.integers(size // 8, size // 3)
-        out[i] = (yy - cy) ** 2 + (xx - cx) ** 2 < r * r
+        for c in range(1, max(classes, 2)):
+            cy, cx = rng.integers(size // 4, 3 * size // 4, 2)
+            r = rng.integers(size // 8, size // 3)
+            out[i][(yy - cy) ** 2 + (xx - cx) ** 2 < r * r] = c
     return out
 
 
@@ -750,7 +775,14 @@ def phase_augment_kernels() -> list:
 
 def _tiles(n: int, seed: int, size: int = TILE) -> np.ndarray:
     """Smooth, tissue-like uint8 tiles: bilinear-upsampled low-resolution
-    colour noise plus fine noise."""
+    colour noise plus fine noise (a copy of the cached batch: making 128
+    tiles of 512² takes the host about 5 s, and the timed steps all take
+    the same ones)."""
+    return _tiles_cached(n, seed, size).copy()
+
+
+@functools.lru_cache(maxsize=8)
+def _tiles_cached(n: int, seed: int, size: int) -> np.ndarray:
     rng = np.random.default_rng(seed)
     coarse = torch.from_numpy(rng.uniform(40, 230, (n, 3, 16, 16))
                               .astype(np.float32))
@@ -1193,23 +1225,32 @@ def phase_unet_serving(tmp: Path, card: str) -> dict:
 
 # -- phase 5: training, the new main path -----------------------------------
 
-def _write_patches(root: Path, n: int, seed: int) -> None:
+def _write_patches(root: Path, n: int, seed: int, classes: int = 1) -> None:
     """``n`` synthetic 512² image/mask PNG pairs in the reference's layout
     (``patch_i.png`` + ``patch_i-labelled.png``): tissue-like tiles with a
-    filled circle, tinted purple, as the label."""
+    filled circle, tinted purple, as the label; with ``classes`` above 1,
+    a circle per class id, each its own tint."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from PIL import Image
 
     root.mkdir(parents=True)
-    images, masks = _tiles(n, seed), _masks(n, seed)
-    tint = np.asarray([120, 60, 160], np.float32)
-    for i in range(n):
-        m = masks[i].astype(bool)
+    images, masks = _tiles(n, seed), _masks(n, seed, classes=classes)
+    tints = np.asarray([[120, 60, 160], [200, 90, 120]], np.float32)
+
+    def write(i: int) -> None:
         img = images[i].astype(np.float32)
-        img[m] = 0.5 * img[m] + 0.5 * tint
+        for c in range(1, max(classes, 2)):
+            m = masks[i] == c
+            img[m] = 0.5 * img[m] + 0.5 * tints[c - 1]
         Image.fromarray(img.astype(np.uint8)).save(
             root / f"patch_{i:04d}.png", compress_level=1)
         Image.fromarray(masks[i]).save(root / f"patch_{i:04d}-labelled.png",
                                        compress_level=1)
+
+    # PIL's encoder lets go of the interpreter lock: the files in parallel
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        list(pool.map(write, range(n)))
 
 
 def _train_counters(reset: bool = False) -> dict:
@@ -1266,21 +1307,25 @@ def phase_data(tmp: Path) -> None:
 
 
 def _train_config(tmp: Path, model: str, epochs: int,
-                  backbone: str = "resnet18", **extra) -> tuple:
+                  backbone: str = "resnet18", name: str | None = None,
+                  batch: int = TRAIN_BATCH, data: str = "data",
+                  **extra) -> tuple:
     """``configs/train_config.yaml`` for ``model`` on ``backbone`` with the
-    smoke's cuts, the synthetic splits and ``extra`` keys; its path and the
-    cuts."""
+    smoke's cuts (the batch cut to ``batch``), the synthetic splits under
+    ``tmp / data`` and ``extra`` keys, written as ``train_<name>.yaml``
+    (the run's tag by default); its path and the cuts."""
     import yaml
 
     cfg = yaml.safe_load((ROOT / "configs" / "train_config.yaml").read_text())
     cuts = {"epochs": (cfg["epochs"], epochs),
-            "batch_size": (cfg["batch_size"], TRAIN_BATCH)}
-    cfg.update({k: v[1] for k, v in cuts.items()})
+            "batch_size": (cfg["batch_size"], batch)}
+    cfg.update({k: v[1] for k, v in cuts.items() if v[0] != v[1]})
+    cuts = {k: v for k, v in cuts.items() if v[0] != v[1]}
     cfg.update({"model": model, "backbone": backbone,
-                "train_path": str(tmp / "data" / "train"),
-                "val_path": str(tmp / "data" / "val"),
-                "test_path": str(tmp / "data" / "test"), **extra})
-    cfg_path = tmp / f"train_{_tag(model, backbone)}.yaml"
+                "train_path": str(tmp / data / "train"),
+                "val_path": str(tmp / data / "val"),
+                "test_path": str(tmp / data / "test"), **extra})
+    cfg_path = tmp / f"train_{name or _tag(model, backbone)}.yaml"
     cfg_path.write_text(yaml.safe_dump(cfg))
     return cfg_path, cfg, cuts
 
@@ -1316,6 +1361,32 @@ def _check_pretrained_start(cfg_path: Path, want: dict) -> int:
     del enc, got
     torch.cuda.empty_cache()
     return len(want)
+
+
+def _expected_train_launches(steps: int, evals: int, batch: int,
+                             eval_batch: int, fused: bool, gn: bool,
+                             micro: int = 1, remat: bool = False) -> tuple:
+    """``(totals, by shape)`` of a cli.train path's augmentation and GN
+    launches: each train step's GN sites run once a microbatch forward
+    (twice under remat: the recompute) and once backward, each eval batch's
+    once forward."""
+    sites = sum(GN_SITES.values()) if gn else 0
+    mb = batch // micro
+    fwd_per_step = micro * (2 if remat else 1)
+    fwd, bwd = {}, {}
+    if gn:
+        for hw, k in GN_SITES.items():
+            train_key = (mb, 128, hw, hw, "bfloat16", True)
+            eval_key = (eval_batch, 128, hw, hw, "bfloat16", True)
+            fwd[train_key] = fwd.get(train_key, 0) + k * steps * fwd_per_step
+            fwd[eval_key] = fwd.get(eval_key, 0) + k * evals
+            bwd[train_key] = k * steps * micro
+    totals = {"augment": steps if fused else 0,
+              "gn_backward": sites * steps * micro,
+              "gn_forward": sites * (steps * fwd_per_step + evals)}
+    shapes = {"augment": {(batch, TILE): steps} if fused else {},
+              "gn_forward": fwd, "gn_backward": bwd}
+    return totals, shapes
 
 
 def phase_training(tmp: Path, model: str = "fpn",
@@ -1364,17 +1435,10 @@ def phase_training(tmp: Path, model: str = "fpn",
     steps = 3 * -(-N_TRAIN // TRAIN_BATCH)
     evals = 3 * -(-N_VAL // TRAIN_BATCH)
     sites = sum(GN_SITES.values()) if model == "fpn" else 0
-    want = {"augment": steps, "gn_backward": sites * steps,
-            "gn_forward": sites * (steps + evals)}
+    want, want_shapes = _expected_train_launches(
+        steps, evals, TRAIN_BATCH, TRAIN_BATCH, True, model == "fpn")
     got = {k: v[0] for k, v in counts.items()}
-    want_fwd = {(TRAIN_BATCH, 128, hw, hw, "bfloat16", True):
-                k * (steps + evals) for hw, k in GN_SITES.items()} \
-        if sites else {}
-    want_bwd = {key: v // (steps + evals) * steps
-                for key, v in want_fwd.items()}
-    if got != want or counts["gn_forward"][1] != want_fwd \
-            or counts["gn_backward"][1] != want_bwd \
-            or counts["augment"][1] != {(TRAIN_BATCH, TILE): steps}:
+    if got != want or any(counts[k][1] != want_shapes[k] for k in want):
         raise AssertionError(f"training launches {counts}, expected {want} "
                              f"({steps} steps, {evals} eval batches)")
     for k in ("gn_forward", "gn_backward"):
@@ -1921,12 +1985,22 @@ def _train_setup(cfg, sd: dict, device: str, dtype=None,
         model.compute_dtype = dtype
     model = model.to(device)
     opt = make_optimizer(model, cfg.lr)
-    return model, make_train_step(model, opt, cfg.img_size,
-                                  make_objective(cfg))
+    extras = cfg.extras
+    return model, make_train_step(
+        model, opt, cfg.img_size, make_objective(cfg),
+        fused_augment=bool(extras.get("fused_augment", True)),
+        remat=bool(extras.get("remat", False)),
+        grad_accum_steps=int(extras.get("grad_accum_steps", 1)),
+        parity_mode=cfg.parity_mode, stain=cfg.stain)
 
 
 def phase_timed_step(card: str, model: str = "fpn",
-                     backbone: str = "resnet18") -> dict:
+                     backbone: str = "resnet18", extra: dict | None = None,
+                     tag: str | None = None, iters: int = 8,
+                     warmup: int = 3) -> dict:
+    """One train step at the config's batch (``extra`` keys over the
+    config), timed over ``iters`` steps after ``warmup``; the augmentation
+    kernel must run once a step where the step fuses, never elsewhere."""
     import yaml
 
     from pdac_pathological_image_segmentation_tpu_torch import Config
@@ -1934,6 +2008,7 @@ def phase_timed_step(card: str, model: str = "fpn",
         build_model,
     )
     from pdac_pathological_image_segmentation_tpu_torch.train.steps import (
+        can_fuse_augment,
         step_generator,
     )
     from pdac_pathological_image_segmentation_tpu_torch.utils.torch_weights import (
@@ -1943,22 +2018,26 @@ def phase_timed_step(card: str, model: str = "fpn",
     set_tf32(False)
     raw = yaml.safe_load((ROOT / "configs" / "train_config.yaml").read_text())
     raw.pop("train_path"), raw.pop("val_path"), raw.pop("test_path")
-    raw.update(model=model, backbone=backbone)
-    tag = _tag(model, backbone)
+    raw.update(model=model, backbone=backbone, **(extra or {}))
+    tag = tag or _tag(model, backbone)
     cfg = Config.from_dict(raw)
     n = cfg.batch_size
     sd = seeded_state_dict(build_model(cfg), seed=7)
-    _, step = _train_setup(cfg, sd, "cuda")
+    net, step = _train_setup(cfg, sd, "cuda")
+    fused = cfg.extras.get("fused_augment", True) and can_fuse_augment(
+        (n, cfg.img_size, cfg.img_size, 3), cfg.img_size, cfg.parity_mode,
+        cfg.stain, net.compute_dtype)
     all_images = torch.from_numpy(_tiles(n, seed=8)).cuda()
-    all_masks = torch.from_numpy(_masks(n, seed=8)).cuda()
-    gens = [step_generator(cfg.seed, 0, i) for i in range(16)]
+    all_masks = torch.from_numpy(_masks(n, seed=8, classes=cfg.num_classes)
+                                 ).cuda()
+    gens = [step_generator(cfg.seed, 0, i) for i in range(warmup + iters + 1)]
     while True:
         # the config's batch, or the largest power-of-two cut of it that
         # fits in the card's memory (said in the log)
         images, masks = all_images[:n], all_masks[:n]
         valid = torch.ones(n, dtype=torch.bool, device="cuda")
         try:
-            for i in range(3):
+            for i in range(warmup):
                 step(images, masks, valid, gens[i])
             torch.cuda.synchronize()
             break
@@ -1970,27 +2049,27 @@ def phase_timed_step(card: str, model: str = "fpn",
         n //= 2
         torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    iters = 8
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     augment_before = _train_counters()["augment"][0]
     t0 = time.perf_counter()
     start.record()
     for i in range(iters):
-        loss, score = step(images, masks, valid, gens[3 + i])
+        loss, score = step(images, masks, valid, gens[warmup + i])
     end.record()
     torch.cuda.synchronize()
     augment_launches = _train_counters()["augment"][0] - augment_before
-    if augment_launches != iters:
+    if augment_launches != (iters if fused else 0):
         raise AssertionError(f"timed {tag} step: {augment_launches} "
-                             f"augmentation launches in {iters} steps")
+                             f"augmentation launches in {iters} steps "
+                             f"(fused: {fused})")
     host_ms = (time.perf_counter() - t0) * 1e3 / iters
     ms = start.elapsed_time(end) / iters
     peak = torch.cuda.max_memory_allocated()
     if not (np.isfinite(float(loss)) and np.isfinite(float(score))):
         raise AssertionError(f"timed step: loss {loss}, score {score}")
     by_name = _profile_by_kernel(
-        lambda: step(images, masks, valid, gens[15]))
+        lambda: step(images, masks, valid, gens[-1]))
     total = sum(by_name.values())
     groups = {
         "gn_forward": GN_FORWARD_KERNELS,
@@ -2001,7 +2080,8 @@ def phase_timed_step(card: str, model: str = "fpn",
                      if any(p in k for p in pats))
               for g, pats in groups.items()}
     log(f"[step] {tag} train step at batch {n}, {cfg.img_size}², "
-        f"{cfg.compute_dtype}, input on the card: {ms:.2f} ms/step by CUDA "
+        f"{cfg.compute_dtype}, {'fused' if fused else 'non-fused'} "
+        f"augmentation, input on the card: {ms:.2f} ms/step by CUDA "
         f"events ({host_ms:.2f} by the host clock), {n * 1e3 / ms:.1f} "
         f"patches/s, peak memory {peak / 2 ** 30:.2f} GiB, augmentation "
         f"kernel launched {augment_launches} times in {iters} steps, on "
@@ -2013,7 +2093,8 @@ def phase_timed_step(card: str, model: str = "fpn",
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
     for k, v in top[:12]:
         log(f"[profile]   {v:8.3f} ms  {k[:110]}")
-    return {"batch": n, "ms_per_step": ms, "patches_per_s": n * 1e3 / ms,
+    return {"batch": n, "fused": bool(fused), "ms_per_step": ms,
+            "patches_per_s": n * 1e3 / ms,
             "peak_bytes": peak, "profile_ms": total,
             "idle_share": max(0.0, 1 - total / ms), "shares_ms": shares,
             "top_kernels_ms": [[k[:80], v] for k, v in top[:5]]}
@@ -2022,7 +2103,8 @@ def phase_timed_step(card: str, model: str = "fpn",
 # -- phase 7: card vs CPU ---------------------------------------------------
 
 def phase_train_card_vs_cpu(model: str = "fpn", backbone: str = "resnet18",
-                            size: int = TILE) -> None:
+                            size: int = TILE, extra: dict | None = None,
+                            tag: str | None = None) -> None:
     """One f32 train step (TF32 off) from the same weights, the same batch
     and the same host generator: on the CPU, on the card with cuDNN's
     convolutions, and on the card with PyTorch's own (cuDNN off).  The
@@ -2042,13 +2124,15 @@ def phase_train_card_vs_cpu(model: str = "fpn", backbone: str = "resnet18",
     )
 
     set_tf32(False)
-    cfg = Config(model=model, backbone=backbone, img_size=size,
-                 compute_dtype="float32", lr=1e-4)
-    tag = _tag(model, backbone)
+    cfg = Config.from_dict({"model": model, "backbone": backbone,
+                            "img_size": size, "compute_dtype": "float32",
+                            "lr": 1e-4, **(extra or {})})
+    tag = tag or _tag(model, backbone)
     sd = seeded_state_dict(build_model(cfg), seed=9)
     n = 2
     images = torch.from_numpy(_tiles(n, seed=10, size=size))
-    masks = torch.from_numpy(_masks(n, seed=10, size=size))
+    masks = torch.from_numpy(_masks(n, seed=10, size=size,
+                                    classes=cfg.num_classes))
     valid = torch.ones(n, dtype=torch.bool)
     # the GN kernels take f32 and bf16, as the Pallas ones do, so an FPN
     # step has no float64 run on the card
@@ -3099,6 +3183,385 @@ def phase_wsi_device(tmp: Path, card: str, int8: bool) -> dict:
             "quantize_by_shape": quantize_by_shape}
 
 
+# -- phase 11: every training option ------------------------------------------
+
+# BASELINE.json config #2: U-Net at 512² with full augmentation and
+# stain-normalization preprocessing, multi-class PDAC regions
+CONFIG_2 = {"num_classes": 3, "stain": "macenko", "loss": "dice"}
+# config #3: the deeper variant (U-Net++ on a ResNet encoder) with weighted
+# Dice + CE
+CONFIG_3 = {"num_classes": 3, "loss": "dice_ce",
+            "class_weights": [1.0, 2.0, 2.0]}
+# the JAX package's way to the config's batch 128 on one chip for the
+# widest encoder (its train/steps.py:59-72)
+REMAT_ACCUM = {"remat": True, "grad_accum_steps": 4}
+OPTION_PATHS = {
+    "train_unet_3class_macenko": ("unet", "resnet18", CONFIG_2),
+    "train_unet++_3class_dice_ce": ("unet++", "resnet18", CONFIG_3),
+    "train_fpn_nonfused": ("fpn", "resnet18", {"fused_augment": False}),
+    "train_fpn_parity": ("fpn", "resnet18", {"parity_mode": True}),
+    f"train_fpn_{B7}_remat_accum4": ("fpn", B7, REMAT_ACCUM),
+}
+
+
+def phase_class_data(tmp: Path) -> None:
+    """Synthetic 512² PNG patches with class ids 0..2 (a circle per class),
+    the splits of phase 5's sizes, under ``tmp / "data3"``."""
+    t0 = time.perf_counter()
+    for split, n, seed in (("train", N_TRAIN, 40), ("val", N_VAL, 41),
+                           ("test", N_TEST, 42)):
+        _write_patches(tmp / "data3" / split, n, seed, classes=3)
+    log(f"[data] {N_TRAIN} + {N_VAL} + {N_TEST} 3-class {TILE}² PNG patches "
+        f"in {time.perf_counter() - t0:.1f} s")
+
+
+def _option_path(tmp: Path, name: str, epochs: int, resume_epochs: int = 0,
+                 batch: int = TRAIN_BATCH, data: str = "data",
+                 resume_extra: dict | None = None) -> dict:
+    """The main path ``name`` of :data:`OPTION_PATHS`: ``cli.train`` for
+    ``epochs``, then, with ``resume_epochs``, a rerun (with
+    ``resume_extra``) that must resume; the launch counters set to 0 just
+    before and read just after, and held to
+    :func:`_expected_train_launches`."""
+    from pdac_pathological_image_segmentation_tpu_torch.train.steps import (
+        can_fuse_augment,
+    )
+
+    model, backbone, extra = OPTION_PATHS[name]
+    tag = name.removeprefix("train_")
+    cfg_path, cfg, cuts = _train_config(tmp, model, epochs, backbone,
+                                        name=tag, batch=batch, data=data,
+                                        **extra)
+    out = tmp / f"train_{tag}_out"
+    log(f"[options] {tag}: configs/train_config.yaml ({model}/{backbone}, "
+        f"{cfg['compute_dtype']}) with {extra}, the cuts "
+        + ", ".join(f"{k} {a} -> {b}" for k, (a, b) in cuts.items()))
+    # -- the main path: launches counted from here ...
+    _train_counters(reset=True)
+    results = [_run_cli_train(cfg_path, out)]
+    if resume_epochs:
+        _train_config(tmp, model, resume_epochs, backbone, name=tag,
+                      batch=batch, data=data, **extra, **(resume_extra or {}))
+        results.append(_run_cli_train(cfg_path, out))
+    counts = _train_counters()
+    # -- ... to here
+    printed = results[-1][1]
+    if resume_epochs and f"resumed from epoch {epochs - 1}" not in printed:
+        raise AssertionError(f"{tag}: the rerun did not resume")
+    history = sum((r[0]["history"] for r in results), [])
+    if [h["epoch"] for h in history] != list(range(resume_epochs or epochs)) \
+            or not all(np.isfinite([h["train_loss"], h["train_score"],
+                                    h["val_loss"], h["val_score"]]).all()
+                       for h in history):
+        raise AssertionError(f"{tag}: training history {history}")
+    n_epochs = resume_epochs or epochs
+    steps = n_epochs * -(-N_TRAIN // batch)
+    evals = n_epochs * -(-N_VAL // batch)
+    dtype = getattr(torch, cfg["compute_dtype"])
+    fused = bool(cfg.get("fused_augment", True)) and can_fuse_augment(
+        (batch, TILE, TILE, 3), cfg["img_size"], bool(cfg.get("parity_mode")),
+        cfg.get("stain", "none"), dtype)
+    want, want_shapes = _expected_train_launches(
+        steps, evals, batch, batch, fused, model == "fpn",
+        micro=int(cfg.get("grad_accum_steps", 1)),
+        remat=bool(cfg.get("remat")))
+    got = {k: v[0] for k, v in counts.items()}
+    if got != want or any(counts[k][1] != want_shapes[k] for k in want):
+        raise AssertionError(f"{tag}: launches {counts}, expected {want} "
+                             f"{want_shapes}")
+    for k in ("gn_forward", "gn_backward"):
+        _all_cluster(f"{tag} {k}", counts[k][2], counts[k][1])
+    seconds = [r[2] for r in results]
+    log(f"[options] {tag}: {n_epochs} epochs in "
+        f"{' + '.join(f'{t:.1f}' for t in seconds)} s, losses "
+        f"{[round(h['train_loss'], 4) for h in history]}, val scores "
+        f"{[round(h['val_score'], 4) for h in history]}; launches {got} "
+        f"({steps} steps, {evals} eval batches, fused {fused})")
+    return {"counts": counts, "history": history, "printed": printed,
+            "out": out, "cfg_path": cfg_path, "seconds": seconds}
+
+
+def _check_profile(tag: str, out: Path, epochs: int) -> list:
+    """``profile_epoch``'s trace under ``log_dir/profile`` with CUDA
+    kernels in it, and the four scalar tags for every epoch."""
+    from pdac_pathological_image_segmentation_tpu_torch.utils.profiling import (
+        device_op_summary,
+    )
+
+    traces = sorted((out / "log_dir" / "profile").glob("*.pt.trace.json"))
+    rows = device_op_summary(str(out / "log_dir" / "profile"), top=5)
+    if not traces or not rows:
+        raise AssertionError(f"{tag}: no profile trace or no kernel in it")
+    raw = json.loads(traces[-1].read_text())
+    if not any(e.get("cat") == "kernel" for e in raw.get("traceEvents", [])):
+        raise AssertionError(f"{tag}: the trace holds no CUDA kernel")
+    lines = (out / "log_dir" / "scalars.csv").read_text().splitlines()
+    epochs_seen = sorted({int(r.split(",")[0]) for r in lines})
+    if epochs_seen != list(range(1, epochs + 1)) or len(lines) != 4 * epochs:
+        raise AssertionError(f"{tag}: scalars.csv rows {lines}")
+    log(f"[options] {tag}: profile_epoch trace {traces[-1].name}, top "
+        "kernels " + "; ".join(f"{us / 1e3:.3f} ms {name[:50]}"
+                               for us, name, _ in rows[:3])
+        + f"; scalars.csv 4 tags x {epochs} epochs")
+    return [[us, name] for us, name, _ in rows]
+
+
+def _stain_ms(n: int = CONFIG_BATCH) -> float:
+    """Macenko on ``n`` tiles of 512² as the bf16 train chain hands them
+    over (bf16 on [0, 1], NHWC), by CUDA events."""
+    from pdac_pathological_image_segmentation_tpu_torch.ops.stain import (
+        apply_stain_batch,
+    )
+
+    x = (torch.from_numpy(_tiles(n, seed=8)).cuda().to(torch.bfloat16)
+         / 255.0)
+    return cuda_ms(lambda: apply_stain_batch(x, "macenko"), warmup=2,
+                   iters=2, windows=3)
+
+
+def _ulps_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """|a − b| in bf16 units in the last place of ``b``."""
+    ulp = torch.exp2(torch.floor(torch.log2(b.float().abs().clamp_min(
+        2.0 ** -126))) - 7)
+    return (a.float() - b.float()).abs() / ulp
+
+
+def phase_chain_card_vs_cpu(n: int = 8) -> list:
+    """The non-fused chain on the card against the CPU with one generator
+    state, default and parity mode: f32 images within 1e-6, bf16 within
+    one ulp with at least 99.9% bit-identical, masks bitwise."""
+    from pdac_pathological_image_segmentation_tpu_torch.ops.augment import (
+        train_transform,
+    )
+    from pdac_pathological_image_segmentation_tpu_torch.train.steps import (
+        step_generator,
+    )
+
+    set_tf32(False)
+    images = torch.from_numpy(_tiles(n, seed=21))
+    masks = torch.from_numpy(_masks(n, seed=21, classes=3))
+    rows = []
+    for parity in (False, True):
+        for dtype in (torch.float32, torch.bfloat16):
+            out = {}
+            for dev in ("cpu", "cuda"):
+                img, msk = train_transform(
+                    images.to(dev), masks.to(dev), TILE,
+                    step_generator(5, 0, int(parity)),
+                    parity_mode=parity, dtype=dtype)
+                out[dev] = (img.cpu(), msk.cpu())
+            (ci, cm), (gi, gm) = out["cpu"], out["cuda"]
+            what = (f"{'parity' if parity else 'default'} chain "
+                    f"{str(dtype).split('.')[-1]}")
+            if not torch.equal(cm, gm):
+                raise AssertionError(f"{what}: masks differ card vs CPU")
+            diff = float((gi.float() - ci.float()).abs().max())
+            same = float((gi == ci).float().mean())
+            if dtype == torch.float32:
+                ok = diff <= 1e-6
+                bound = "1e-6"
+            else:
+                ok = same >= 0.999 and float(_ulps_bf16(gi, ci).max()) <= 1
+                bound = "one ulp, >= 99.9% bit-identical"
+            log(f"[chain] {what}, {n}x{TILE}², card vs CPU: max |Δ| "
+                f"{diff:.3g}, bit-identical {same:.6f} ({bound}); masks "
+                "bitwise")
+            if not ok:
+                raise AssertionError(f"{what}: card vs CPU beyond {bound}")
+            rows.append({"chain": what, "max_abs": diff,
+                         "bit_identical": same})
+    return rows
+
+
+def phase_remat_equivalence() -> dict:
+    """FPN/efficientnet-b7 at the smoke's training batch (32): one k = 4
+    step with remat against the same step without, from one seeded state
+    and one generator, cuDNN deterministic, beside a second plain step as
+    the control.  The forward must be the same: loss within 1e-5, BN buffers
+    within 1e-5, ``num_batches_tracked`` equal; the GN forward kernel runs
+    twice as often (the recompute).  The backward is not deterministic on
+    the card (the logits' bilinear resize sums its gradient with atomics,
+    and bf16 rounding carries that everywhere), so the gradients are held
+    against the control: each tensor's |g_remat − g_plain| / |g_plain|
+    within the larger of 5e-3 and twice the worst such distance of the two
+    plain steps, and their median within 1.5 times the control's plus
+    5e-3; every parameter within 2·lr after Adam.  Each parameter's
+    distance after Adam over its update's norm is reported for both."""
+    import yaml
+
+    from pdac_pathological_image_segmentation_tpu_torch import Config
+    from pdac_pathological_image_segmentation_tpu_torch.models import (
+        build_model,
+    )
+    from pdac_pathological_image_segmentation_tpu_torch.train.steps import (
+        step_generator,
+    )
+    from pdac_pathological_image_segmentation_tpu_torch.utils.torch_weights import (
+        seeded_state_dict,
+    )
+
+    set_tf32(False)
+    raw = yaml.safe_load((ROOT / "configs" / "train_config.yaml").read_text())
+    # at the smoke's training batch (4 microbatches of 8): three b7 steps
+    # at the config's 128 with cuDNN's deterministic algorithms take the
+    # card about 40 s
+    raw.update(model="fpn", backbone=B7, batch_size=TRAIN_BATCH,
+               **REMAT_ACCUM)
+    n, lr = raw["batch_size"], float(raw["lr"])
+    model = build_model(Config.from_dict(raw))
+    names = [k for k, _ in model.named_parameters()]
+    sd = seeded_state_dict(model, seed=7)
+    del model
+    images = torch.from_numpy(_tiles(n, seed=8)).cuda()
+    masks = torch.from_numpy(_masks(n, seed=8)).cuda()
+    valid = torch.ones(n, dtype=torch.bool, device="cuda")
+    res = {}
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True, allow_tf32=False):
+        for run, remat in (("plain", False), ("plain_again", False),
+                           ("remat", True)):
+            net, step = _train_setup(Config.from_dict(dict(raw, remat=remat)),
+                                     sd, "cuda")
+            torch.cuda.synchronize()
+            fwd0 = _train_counters()["gn_forward"][0]
+            loss, _ = step(images, masks, valid, step_generator(1, 0, 0))
+            torch.cuda.synchronize()
+            res[run] = {"loss": float(loss),
+                        "state": {k: v.cpu() for k, v in
+                                  net.state_dict().items()},
+                        "grads": {k: p.grad.float().cpu()
+                                  for k, p in net.named_parameters()},
+                        "gn_forward": _train_counters()["gn_forward"][0]
+                        - fwd0}
+            del net, step
+            torch.cuda.empty_cache()
+    plain = res["plain"]
+
+    def grad_dist(run: str) -> dict:
+        g = res[run]["grads"]
+        return {k: float((g[k] - plain["grads"][k]).norm())
+                / max(float(plain["grads"][k].norm()), 1e-30) for k in names}
+
+    def update_dist(run: str) -> float:
+        st = res[run]["state"]
+        return max(float((st[k] - plain["state"][k]).norm()) / max(
+            float((plain["state"][k] - sd[k]).norm()), 1e-30) for k in names)
+
+    g_control, g_remat = grad_dist("plain_again"), grad_dist("remat")
+    bound = max(5e-3, 2 * max(g_control.values()))
+    median = float(np.median(list(g_remat.values())))
+    median_bound = 1.5 * float(np.median(list(g_control.values()))) + 5e-3
+    worst = max(g_remat, key=g_remat.get)
+    within_2lr = max(float((res["remat"]["state"][k] - plain["state"][k])
+                           .abs().max()) for k in names) <= 2 * lr * 1.001
+    worst_bn = max(float((res["remat"]["state"][k].double()
+                          - plain["state"][k].double()).abs().max())
+                   for k in sd if k not in names)
+    tracked = all(torch.equal(res["remat"]["state"][k], plain["state"][k])
+                  for k in sd if k.endswith("num_batches_tracked"))
+    d_loss = abs(res["remat"]["loss"] - plain["loss"])
+    f0, f1 = plain["gn_forward"], res["remat"]["gn_forward"]
+    log(f"[remat] fpn_{B7} k=4 step at batch {n}: remat vs plain |Δloss| "
+        f"{d_loss:.3g} (1e-5), BN buffers max |Δ| {worst_bn:.3g} (1e-5), "
+        f"num_batches_tracked equal {tracked}; gradients |Δg|/|g| worst "
+        f"{g_remat[worst]:.3g} ({worst}), median {median:.3g}, against "
+        f"two plain steps worst {max(g_control.values()):.3g}, median "
+        f"{float(np.median(list(g_control.values()))):.3g} (bounds "
+        f"{bound:.3g}, {median_bound:.3g}); after Adam every parameter within 2·lr: "
+        f"{within_2lr}, worst |Δp|/|update| {update_dist('remat'):.3g} "
+        f"(two plain steps {update_dist('plain_again'):.3g}); GN forward "
+        f"launches {f1} vs {f0} (twice: the recompute)")
+    if d_loss > 1e-5 or worst_bn > 1e-5 or not tracked \
+            or g_remat[worst] > bound or median > median_bound \
+            or not within_2lr or f1 != 2 * f0 \
+            or not np.isfinite(plain["loss"]):
+        raise AssertionError("remat step differs from the plain step")
+    return {"d_loss": d_loss, "worst_bn": worst_bn,
+            "grad_rel_worst": g_remat[worst], "grad_rel_median": median,
+            "grad_rel_control_worst": max(g_control.values()),
+            "update_rel": update_dist("remat"),
+            "update_rel_control": update_dist("plain_again"),
+            "gn_forward": [f0, f1]}
+
+
+def phase_train_options(tmp: Path, card: str, steps: dict) -> dict:
+    """Phase 11: BASELINE.json configs #2 and #3, the non-fused train chain
+    (``fused_augment: false``, ``parity_mode``) and ``remat`` with
+    ``grad_accum_steps`` on the widest encoder, each a main path through
+    ``cli.train`` with its launches counted; the timed steps at the
+    config's batch; card vs CPU for the new step and chain."""
+    out = {"paths": {}, "steps": {}}
+    # -- 11a: config #2, stain forces the non-fused chain
+    name = "train_unet_3class_macenko"
+    run = _option_path(tmp, name, 2, 3, data="data3",
+                       resume_extra={"profile_epoch": 2, "debug_nans": True})
+    if "profile of epoch 2" not in run["printed"]:
+        raise AssertionError(f"{name}: profile_epoch printed no summary")
+    out["profile_top"] = _check_profile(name, run["out"], 3)
+    out["paths"][name] = run["counts"]
+    res = _run_cli_test(run["cfg_path"], run["out"] / "pth",
+                        tmp / "test_unet_3class_out", "cuda")
+    rows = (tmp / "test_unet_3class_out" / "metrics.csv").read_text() \
+        .splitlines()
+    if "dice_c2" not in rows[0] or len(rows) != 1 + N_TEST + 2 \
+            or "best_threshold" in res or not np.isfinite(res["test_score"]):
+        raise AssertionError(f"cli.test 3-class: {res}, {rows[0]}")
+    log(f"[options] cli.test 3-class on the card: test_score "
+        f"{res['test_score']:.6f}, per-class metrics.csv columns "
+        f"{len(rows[0].split(',')) - 2} (6 metrics x 3 classes), no sweep")
+    out["test_3class"] = {"test_score": res["test_score"],
+                          "metrics": res["metrics"]}
+    model, backbone, extra = OPTION_PATHS[name]
+    out["steps"][name] = phase_timed_step(card, model, backbone, extra,
+                                          tag=name)
+    stain_ms = _stain_ms()
+    share = stain_ms / out["steps"][name]["ms_per_step"]
+    log(f"[options] Macenko on {CONFIG_BATCH}x{TILE}² bf16 tiles: "
+        f"{stain_ms:.2f} ms, {100 * share:.1f}% of the 3-class step")
+    out["macenko_ms"], out["macenko_share"] = stain_ms, share
+    phase_train_card_vs_cpu(model, backbone, extra=extra, tag=name)
+    # -- 11b: config #3, 3 classes without stain: fused
+    name = "train_unet++_3class_dice_ce"
+    out["paths"][name] = _option_path(tmp, name, 2, 3,
+                                      data="data3")["counts"]
+    model, backbone, extra = OPTION_PATHS[name]
+    out["steps"][name] = phase_timed_step(card, model, backbone, extra,
+                                          tag=name)
+    # -- 11c: FPN's non-fused and parity chains beside its fused one
+    for key, extra in (("fpn_fused", {}),
+                       ("train_fpn_nonfused", {"fused_augment": False}),
+                       ("train_fpn_parity", {"parity_mode": True})):
+        out["steps"][key] = phase_timed_step(card, "fpn", extra=extra,
+                                             tag=key)
+    out["chain"] = phase_chain_card_vs_cpu()
+    out["paths"]["train_fpn_nonfused"] = _option_path(
+        tmp, "train_fpn_nonfused", 2)["counts"]
+    run = _option_path(tmp, "train_fpn_parity", 2, 3)
+    if "best=0.0000" not in run["printed"]:
+        raise AssertionError("parity_mode: the best did not reset on resume")
+    out["paths"]["train_fpn_parity"] = run["counts"]
+    # -- 11d: the widest encoder at the config's batch
+    out["remat"] = phase_remat_equivalence()
+    name = f"train_fpn_{B7}_remat_accum4"
+    out["steps"][name] = phase_timed_step(card, "fpn", B7, REMAT_ACCUM,
+                                          tag=name, iters=2, warmup=1)
+    out["paths"][name] = _option_path(tmp, name, 2,
+                                      batch=CONFIG_BATCH)["counts"]
+    for key, base in (("train_fpn_nonfused", "fpn_fused"),
+                      ("train_fpn_parity", "fpn_fused"),
+                      (name, _tag("fpn", B7))):
+        got, ref = out["steps"][key], (out["steps"].get(base)
+                                       or steps.get(base))
+        if ref:
+            log(f"[options] {key} step at batch {got['batch']}: "
+                f"{got['ms_per_step']:.2f} ms, {got['patches_per_s']:.1f} "
+                f"patches/s, peak {got['peak_bytes'] / 2 ** 30:.2f} GiB; "
+                f"{base} at batch {ref['batch']}: {ref['ms_per_step']:.2f} "
+                f"ms, {ref['patches_per_s']:.1f} patches/s, peak "
+                f"{ref['peak_bytes'] / 2 ** 30:.2f} GiB")
+    return out
+
+
 def _seeded(model: str, backbone: str, seed: int) -> dict:
     from pdac_pathological_image_segmentation_tpu_torch import Config
     from pdac_pathological_image_segmentation_tpu_torch.models import (
@@ -3213,15 +3676,28 @@ def main() -> int:
         wsi_device = {tag: phase_wsi_device(tmp, card, tag == "int8")
                       for tag in ("bf16", "int8")}
         phase_done("10 the 40,960² slide from the card")
+        phase_class_data(tmp)
+        options = phase_train_options(tmp, card, steps)
+        phase_done("11 training options")
     train_runs = {"train": train, "train_unet": train_unet,
                   **{f"train_{m}": run for m, run in train_new.items()}}
+    # one augmentation row per launch key takes the key's launches: the one
+    # on the trainer's own draws where a key has two
+    aug_rows = {}
+    for row in kernels:
+        if row["name"] == "fused_train_transform":
+            key = (row["shape"][0], row["shape"][1])
+            if key not in aug_rows or row["tables"] == "trainer":
+                aug_rows[key] = row
     for row in kernels:
         # launches on the main paths, by variant and shape: 0 for rows off
         # them
         if row["name"] == "fused_train_transform":
-            key = (row["shape"][0], TILE)
+            key = (row["shape"][0], row["shape"][1])
             paths = {path: run["augment"][1].get(key, 0)
-                     for path, run in train_runs.items()}
+                     if aug_rows[key] is row else 0
+                     for path, run in {**train_runs,
+                                       **options["paths"]}.items()}
         else:
             key = (row["variant"], *row["shape"], row["dtype"], row["relu"])
             if row["name"] == "group_norm_relu":
@@ -3242,11 +3718,15 @@ def main() -> int:
                          f"eval_{b7_tag}":
                              evaluation["by_variant"][b7_tag].get(key, 0),
                          f"wsi_{b7_tag}":
-                             overlays[b7_tag]["by_variant"].get(key, 0)}
+                             overlays[b7_tag]["by_variant"].get(key, 0),
+                         **{p: run["gn_forward"][2].get(key, 0)
+                            for p, run in options["paths"].items()}}
             else:
                 paths = {"train": train["gn_backward"][2].get(key, 0),
                          f"train_{b7_tag}":
-                             train_new[b7_tag]["gn_backward"][2].get(key, 0)}
+                             train_new[b7_tag]["gn_backward"][2].get(key, 0),
+                         **{p: run["gn_backward"][2].get(key, 0)
+                            for p, run in options["paths"].items()}}
         row["launches"] = sum(paths.values())
         row["launches_by_path"] = paths
     int8_paths = {"serve_int8": int8_serve["by_shape"],
@@ -3298,16 +3778,26 @@ def main() -> int:
     gn_paths = ("serve", "eval", "wsi", f"serve_{b7_tag}", f"eval_{b7_tag}",
                 f"wsi_{b7_tag}", "serve_int8", "overlay_int8", "serve_stain",
                 "wsi_device_bf16", "wsi_device_int8")
-    for name, path in ([("fused_train_transform", p) for p in train_runs]
+    fused_paths = list(train_runs) + ["train_unet++_3class_dice_ce",
+                                      f"train_fpn_{B7}_remat_accum4"]
+    gn_train_paths = ["train", f"train_{b7_tag}", "train_fpn_nonfused",
+                      "train_fpn_parity", f"train_fpn_{B7}_remat_accum4"]
+    for name, path in ([("fused_train_transform", p) for p in fused_paths]
                        + [("group_norm_relu", p) for p in gn_paths]
-                       + [("group_norm_relu", f"train_{b7_tag}"),
-                          ("group_norm_relu_backward", "train"),
-                          ("group_norm_relu_backward", f"train_{b7_tag}")]):
+                       + [(k, p) for p in gn_train_paths
+                          for k in ("group_norm_relu",
+                                    "group_norm_relu_backward")]):
         if not sum(r["launches_by_path"][path] for r in kernels
                    if r["name"] == name
                    and r.get("variant", "cluster") == "cluster"):
             raise AssertionError(f"{name} was not launched on the {path} "
                                  "path")
+    # the non-fused paths: no augmentation kernel at all
+    for path in ("train_unet_3class_macenko", "train_fpn_nonfused",
+                 "train_fpn_parity"):
+        if sum(r["launches_by_path"][path] for r in kernels
+               if r["name"] == "fused_train_transform"):
+            raise AssertionError(f"the augmentation kernel ran on {path}")
     print(json.dumps({"models": {
         m: {"serving": {k: v for k, v in served[m].items() if k != "sd"},
             "step": steps[m], "test_score": evaluation["scores"][m]}
@@ -3323,6 +3813,7 @@ def main() -> int:
                     for m, r in int8_models.items()},
                  "overlay_s": int8_overlay["seconds"]},
         "stain": {k: v for k, v in stain.items() if k != "gn_by_variant"},
+        "train_options": {k: v for k, v in options.items() if k != "paths"},
         "seconds": time.perf_counter() - t_start}), flush=True)
     print(json.dumps({"wsi_host": wsi_timed["summary"],
                       "wsi_40k_device": {t: r["summary"] for t, r

@@ -102,7 +102,9 @@ class PatchLoader:
                 if len(chunk) < self.batch_size:  # final partial batch
                     pad = self.batch_size - len(chunk)
                     valid[len(chunk):] = False
-                    chunk = np.concatenate([chunk, idxs[:pad]])
+                    # from the epoch's start, cyclically: a split smaller
+                    # than the batch still fills it
+                    chunk = np.concatenate([chunk, np.resize(idxs, pad)])
                 pairs = list(pool.map(self.dataset.__getitem__, chunk))
                 yield (np.stack([p[0] for p in pairs]),
                        np.stack([p[1] for p in pairs]), valid)

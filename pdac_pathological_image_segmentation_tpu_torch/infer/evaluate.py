@@ -3,7 +3,8 @@ reference's ``test.py:137-191``).
 
 One device step per batch, in eval mode: the loss and hard Dice score of
 the batch, hard predictions, the masks, the denormalized inputs, per-sample
-confusion counts and the probability histograms of the threshold sweep.
+confusion counts (one-vs-rest per class for a multi-class model) and, for
+a binary model, the probability histograms of the threshold sweep.
 The host fetches once per batch.  As in the reference, the meters average
 per batch (n = 1 per batch, ``test.py:149-150``), not per sample; the
 wrap-padded samples of the last partial batch are masked out by ``valid``.
@@ -104,12 +105,17 @@ class Evaluator:
                                     model.compute_dtype, self.cfg.stain)
         out = model(imgs)
         preds = obj.predict_fn(out)
-        # the tumor probability exactly as predict_fn thresholds it
-        probs = torch.sigmoid(out[:, 0].float())
+        if obj.num_classes == 1:
+            # the tumor probability exactly as predict_fn thresholds it
+            hists = prob_histograms(torch.sigmoid(out[:, 0].float()), msks,
+                                    valid)
+        else:
+            hists = torch.zeros((2, SWEEP_BINS + 1), dtype=torch.int64,
+                                device=out.device)
         return (obj.loss_fn(out, msks, valid), obj.score_fn(out, msks, valid),
                 preds, msks, denormalize(imgs.float()),
-                per_sample_confusion(preds, msks, valid),
-                prob_histograms(probs, msks, valid))
+                per_sample_confusion(preds, msks, valid, obj.num_classes),
+                hists)
 
     def run(self, test_set: PatchDataset, figure_path: Optional[str] = None,
             max_figures: Optional[int] = None,
@@ -117,9 +123,11 @@ class Evaluator:
             sweep_csv: Optional[str] = None, verbose: bool = True) -> dict:
         """Evaluate ``test_set``; write figures to ``figure_path`` (at most
         ``max_figures``), per-sample metrics (then ``macro`` and ``micro``
-        rows) to ``metrics_csv`` and the 257-threshold sweep to
+        rows; a column per metric and class for a multi-class model) to
+        ``metrics_csv`` and, for a binary model, the 257-threshold sweep to
         ``sweep_csv``.  Returns ``test_score``, ``test_loss``, the pooled
-        metrics, ``best_threshold``, ``best_dice`` and ``dice_at_0.5``."""
+        metrics (averaged over the classes), and for a binary model
+        ``best_threshold``, ``best_dice`` and ``dice_at_0.5``."""
         cfg = self.cfg
         loader = PatchLoader(test_set, cfg.batch_size, shuffle=False,
                              device=self.device, num_workers=cfg.num_worker)

@@ -30,9 +30,9 @@ import torch
 
 from pdac_pathological_image_segmentation_tpu_torch.ops.augment import (
     AugmentTables,
-    normalize_bf16,
-    train_transform,
-    unit_bf16,
+    fused_chain_bf16,
+    normalize_unit,
+    unit,
 )
 
 _SOURCE = "fused_augment.cu"
@@ -44,9 +44,9 @@ _tables: dict = {}
 
 def fused_train_transform_reference(images: torch.Tensor, masks: torch.Tensor,
                                     tables: AugmentTables):
-    """The plain version: :func:`~.augment.train_transform` in its default
-    mode (bf16 chain, jitter on [0, 1] with per-slot clipping)."""
-    return train_transform(images, masks, tables)
+    """The plain version: :func:`~.augment.fused_chain_bf16`, the default
+    chain in bf16 (jitter on [0, 1] with per-slot clipping)."""
+    return fused_chain_bf16(images, masks, tables)
 
 
 def out_tile(size: int, ty0: int, tx0: int, t: int, l: int, r: int):
@@ -71,15 +71,16 @@ def lookup_tables(device) -> tuple:
     """``(unit (256,) f32, norm (3, 256) bf16)`` on ``device``: ``unit[v]``
     is ``bf16(v / 255)`` and ``norm[c, v]`` the normalized channel-``c``
     output of an un-jittered byte ``v``, both computed by the plain chain's
-    own steps (``augment.unit_bf16``, ``augment.normalize_bf16``) on that
-    device, so they equal it bit for bit.  Built once per device."""
+    own steps (``augment.unit``, ``augment.normalize_unit``) in bf16 on
+    that device, so they equal it bit for bit.  Built once per device."""
     device = torch.device(device)
     cached = _tables.get(device)
     if cached is None:
         byte = torch.arange(256, device=device).to(torch.uint8)
-        unit = unit_bf16(byte.view(1, 1, 256, 1).expand(1, 1, 256, 3))
-        norm = normalize_bf16(unit)[0, :, 0].contiguous()
-        cached = (unit[0, 0, 0].float().contiguous(), norm)
+        scaled = unit(byte.view(1, 1, 1, 256).expand(1, 3, 1, 256),
+                      torch.bfloat16)
+        norm = normalize_unit(scaled)[0, :, 0].contiguous()
+        cached = (scaled[0, 0, 0].float().contiguous(), norm)
         _tables[device] = cached
     return cached
 

@@ -130,7 +130,13 @@ def nanpercentile_nearest(values: torch.Tensor, valid: torch.Tensor,
     return torch.gather(srt, -1, idx.unsqueeze(-1)).squeeze(-1)
 
 
+def _compute_dtype(rgb: torch.Tensor) -> torch.dtype:
+    """float32 for a bfloat16 input, the input's own dtype otherwise."""
+    return torch.promote_types(rgb.dtype, torch.float32)
+
+
 def _optical_density(rgb: torch.Tensor) -> torch.Tensor:
+    """``-log10(max(rgb, eps))`` in ``rgb``'s dtype."""
     return -torch.log10(torch.clamp_min(rgb, _EPS))
 
 
@@ -141,7 +147,7 @@ def _concentrations(od: torch.Tensor, basis: torch.Tensor) -> torch.Tensor:
     does, instead of raising."""
     bt = basis.transpose(1, 2)
     pinv = torch.linalg.inv_ex(bt @ basis).inverse @ bt
-    return pinv @ od.transpose(1, 2)
+    return pinv @ od.to(basis.dtype).transpose(1, 2)
 
 
 def macenko_stain_matrix(rgb: torch.Tensor) -> StainBasis:
@@ -150,8 +156,9 @@ def macenko_stain_matrix(rgb: torch.Tensor) -> StainBasis:
     norm at most ``BETA``) weigh zero in the covariance and are left out of
     the percentiles."""
     n = rgb.shape[0]
-    od = _optical_density(rgb).reshape(n, -1, 3)
-    tissue = torch.linalg.vector_norm(od, dim=2) > BETA
+    od_in = _optical_density(rgb).reshape(n, -1, 3)
+    tissue = torch.linalg.vector_norm(od_in, dim=2) > BETA
+    od = od_in.to(_compute_dtype(rgb))
     w = tissue.float().unsqueeze(2)
     cnt = torch.clamp_min(w.sum(dim=1), 1.0)  # (N, 1)
     mean = (od * w).sum(dim=1) / cnt
@@ -186,7 +193,7 @@ def macenko_stain_matrix(rgb: torch.Tensor) -> StainBasis:
     basis = torch.stack([h, e], dim=2)
     basis = basis / (torch.linalg.vector_norm(basis, dim=1, keepdim=True)
                      + _EPS)
-    conc = _concentrations(od, basis)
+    conc = _concentrations(od_in, basis)
     max_conc = nanpercentile_nearest(
         conc, tissue.unsqueeze(1).expand_as(conc), 99.0)
     return StainBasis(basis, max_conc)
@@ -196,11 +203,11 @@ def macenko_normalize(rgb: torch.Tensor, source: StainBasis) -> torch.Tensor:
     """Remap each image from its ``source`` basis onto the reference
     basis."""
     n = rgb.shape[0]
-    od = _optical_density(rgb).reshape(n, -1, 3)
-    conc = _concentrations(od, source.basis)
-    scale = _t(REFERENCE_MAX_CONC, rgb) / torch.clamp_min(source.max_conc,
-                                                          _EPS)
-    od_out = _t(REFERENCE_STAIN_BASIS, rgb) @ (conc * scale.unsqueeze(-1))
+    conc = _concentrations(_optical_density(rgb).reshape(n, -1, 3),
+                           source.basis)
+    scale = _t(REFERENCE_MAX_CONC, conc) / torch.clamp_min(source.max_conc,
+                                                           _EPS)
+    od_out = _t(REFERENCE_STAIN_BASIS, conc) @ (conc * scale.unsqueeze(-1))
     out = torch.pow(10.0, -od_out).transpose(1, 2).reshape(rgb.shape)
     return torch.clamp(out, 0.0, 1.0)
 
@@ -212,11 +219,17 @@ def check_method(method: str) -> None:
 
 
 def apply_stain_batch(imgs01: torch.Tensor, method: str) -> torch.Tensor:
-    """Per-image stain normalization of (N, H, W, 3) float32 RGB in [0, 1];
-    ``method`` is one of ``none``, ``reinhard``, ``macenko``."""
+    """Per-image stain normalization of (N, H, W, 3) float RGB in [0, 1];
+    ``method`` is one of ``none``, ``reinhard``, ``macenko``.
+
+    A bfloat16 batch (the bf16 train chain's) is computed as the JAX
+    function computes it, where numpy's float32 constants promote: Reinhard
+    on its float32 values; Macenko with the optical density, and the
+    tissue test on its norm, in bfloat16 and the rest in float32.  The
+    result is then float32, as JAX's is."""
     if method in (None, "", "none"):
         return imgs01
     check_method(method)
     if method == "reinhard":
-        return reinhard_normalize(imgs01)
+        return reinhard_normalize(imgs01.to(_compute_dtype(imgs01)))
     return macenko_normalize(imgs01, macenko_stain_matrix(imgs01))

@@ -7,15 +7,18 @@ Adam's state_dict, "epoch", "previous_best"}``, so the reference's
 ``test.py`` and the JAX package's ``load_reference_checkpoint_full`` read
 them.  Beside those keys the port keeps the plateau scheduler's and the
 early stop's state, which the reference does not save, so a resume
-continues them.  Every tensor is written from the CPU, synchronously, to a
-temporary file that replaces the old one.
+continues them.  Every tensor is written from the CPU to a temporary file
+that replaces the old one: inline by :func:`save_checkpoint`, or by
+:class:`AsyncCheckpointSaver` on a background thread while the next epoch
+trains (the same bytes).
 """
 
 from __future__ import annotations
 
 import os
 import shutil
-from typing import Optional
+import threading
+from typing import Callable, Optional
 
 import torch
 import torch.nn as nn
@@ -33,24 +36,27 @@ BEST = "best.pth"
 _PREFIX = "module."
 
 
-def _cpu(obj):
+def _map_tensors(obj, fn: Callable):
     if torch.is_tensor(obj):
-        return obj.detach().cpu()
+        return fn(obj.detach())
     if isinstance(obj, dict):
-        return {k: _cpu(v) for k, v in obj.items()}
+        return {k: _map_tensors(v, fn) for k, v in obj.items()}
     if isinstance(obj, list):
-        return [_cpu(v) for v in obj]
+        return [_map_tensors(v, fn) for v in obj]
     return obj
 
 
 def checkpoint_payload(model: nn.Module, optimizer: torch.optim.Optimizer,
                        epoch: int, previous_best: float,
                        scheduler_state: Optional[dict] = None,
-                       earlystop_state: Optional[dict] = None) -> dict:
-    """The reference-format dictionary of one epoch, on the CPU."""
+                       earlystop_state: Optional[dict] = None,
+                       to_host: Callable = torch.Tensor.cpu) -> dict:
+    """The reference-format dictionary of one epoch, each tensor through
+    ``to_host`` (by default the tensor on the CPU)."""
     payload = {
-        "model": {_PREFIX + k: v for k, v in _cpu(model.state_dict()).items()},
-        "optimizer": _cpu(optimizer.state_dict()),
+        "model": {_PREFIX + k: v for k, v in
+                  _map_tensors(model.state_dict(), to_host).items()},
+        "optimizer": _map_tensors(optimizer.state_dict(), to_host),
         "epoch": int(epoch),
         "previous_best": float(previous_best),
     }
@@ -66,9 +72,13 @@ def save_checkpoint(pth_dir: str, model: nn.Module,
                     previous_best: float, scheduler_state: dict,
                     earlystop_state: dict, is_best: bool) -> None:
     """Write ``latest.pth`` and, when ``is_best``, ``best.pth``."""
+    _write(pth_dir, checkpoint_payload(model, optimizer, epoch, previous_best,
+                                       scheduler_state, earlystop_state),
+           is_best)
+
+
+def _write(pth_dir: str, payload: dict, is_best: bool) -> None:
     os.makedirs(pth_dir, exist_ok=True)
-    payload = checkpoint_payload(model, optimizer, epoch, previous_best,
-                                 scheduler_state, earlystop_state)
     latest = os.path.join(pth_dir, LATEST)
     tmp = latest + ".tmp"
     torch.save(payload, tmp)
@@ -76,6 +86,75 @@ def save_checkpoint(pth_dir: str, model: nn.Module,
     if is_best:
         shutil.copyfile(latest, tmp)
         os.replace(tmp, os.path.join(pth_dir, BEST))
+
+
+class AsyncCheckpointSaver:
+    """Per-epoch checkpoints written while the next epoch trains (the JAX
+    package's ``AsyncCheckpointSaver``).
+
+    :meth:`save` takes a snapshot of the model, Adam, scheduler and early
+    stop state and returns: a tensor on a card is cloned on the device (on
+    the current stream, so the next step's in-place updates come after
+    it), then copied to pinned host memory on a side stream; a CPU tensor
+    is cloned.  A background thread waits for the copies and writes the
+    files :func:`save_checkpoint` would write, byte for byte.  One save is
+    in flight at a time: a second :meth:`save`, or :meth:`wait`, joins the
+    previous write first and re-raises what it raised."""
+
+    def __init__(self) -> None:
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[Exception] = None
+        self._stream = None
+
+    def wait(self) -> None:
+        """Block until the save in flight (if any) has landed; re-raise its
+        failure."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise RuntimeError("async checkpoint save failed") from err
+
+    def _to_pinned(self, t: torch.Tensor) -> torch.Tensor:
+        if not t.is_cuda:
+            return t
+        host = torch.empty_like(t, device="cpu", pin_memory=True)
+        with torch.cuda.stream(self._stream):
+            host.copy_(t, non_blocking=True)
+        t.record_stream(self._stream)  # freed once the copy has run
+        return host
+
+    def save(self, pth_dir: str, model: nn.Module,
+             optimizer: torch.optim.Optimizer, epoch: int,
+             previous_best: float, scheduler_state: dict,
+             earlystop_state: dict, is_best: bool) -> None:
+        """:func:`save_checkpoint`'s contract, returning once the snapshot
+        is queued."""
+        self.wait()
+        payload = checkpoint_payload(model, optimizer, epoch, previous_best,
+                                     scheduler_state, earlystop_state,
+                                     to_host=torch.Tensor.clone)
+        device = next(model.parameters()).device
+        copied = None
+        if device.type == "cuda":
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(device)
+            self._stream.wait_stream(torch.cuda.current_stream(device))
+            payload = _map_tensors(payload, self._to_pinned)
+            copied = self._stream.record_event()
+
+        def write() -> None:
+            try:
+                if copied is not None:
+                    copied.synchronize()
+                _write(pth_dir, payload, is_best)
+            except Exception as e:  # surfaced by the next wait()
+                self._error = e
+
+        self._thread = threading.Thread(target=write, name="ckpt-save",
+                                        daemon=True)
+        self._thread.start()
 
 
 def _adam_state_by_name(ckpt: dict, model: nn.Module,

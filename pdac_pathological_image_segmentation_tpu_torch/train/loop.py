@@ -3,19 +3,27 @@ device).
 
 Per epoch: the train steps (each with a generator seeded from ``(seed,
 epoch, step)``), validation, the plateau step and the new rate into Adam,
-the reference's four scalar tags in ``log_dir/scalars.csv``, the early stop
-and the checkpoint.  The per-step loss and score stay on the device and are
-fetched once per epoch.  ``previous_best``, the scheduler and the early
-stop are restored on resume, as in the JAX package.
+the reference's four scalar tags (``log_dir/scalars.csv``, and TensorBoard
+events where ``torch.utils.tensorboard`` imports), the early stop and the
+checkpoint, written on a background thread while the next epoch trains
+(``AsyncCheckpointSaver``).  The per-step loss and score stay on the device
+and are fetched once per epoch.  ``previous_best``, the scheduler and the
+early stop are restored on resume, as in the JAX package; under
+``parity_mode`` the best resets to 0 (the reference's quirk).
 
 ``pretrained_path`` names an ImageNet encoder file, loaded into the seeded
 model's encoder before any resume (so a resume overrides it), as the JAX
-``Trainer`` does.  Not ported, each raising: ``num_devices > 1``,
-``gns_every``, ``profile_epoch``.
+``Trainer`` does.  ``profile_epoch: k`` traces epoch k with
+``torch.profiler`` into ``log_dir/profile`` and prints the step times and
+the trace's top kernels.  ``debug_nans: true`` runs the epochs under
+autograd's anomaly mode and checks each step's loss and gradients
+(``FloatingPointError`` naming the epoch, the step and the tensor).  Not
+ported, each raising: ``num_devices > 1``, ``gns_every``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 
@@ -29,8 +37,8 @@ from pdac_pathological_image_segmentation_tpu_torch.data.loader import (
 )
 from pdac_pathological_image_segmentation_tpu_torch.models import build_model
 from pdac_pathological_image_segmentation_tpu_torch.train.checkpoint import (
+    AsyncCheckpointSaver,
     restore_checkpoint,
-    save_checkpoint,
 )
 from pdac_pathological_image_segmentation_tpu_torch.train.objective import (
     make_objective,
@@ -50,6 +58,11 @@ from pdac_pathological_image_segmentation_tpu_torch.train.steps import (
 from pdac_pathological_image_segmentation_tpu_torch.utils.meters import (
     EarlyStop,
 )
+from pdac_pathological_image_segmentation_tpu_torch.utils.profiling import (
+    StepTimer,
+    device_op_summary,
+    trace,
+)
 from pdac_pathological_image_segmentation_tpu_torch.utils.torch_weights import (
     load_pretrained_encoder,
 )
@@ -63,12 +76,41 @@ def check_supported(cfg: Config) -> None:
     if cfg.num_devices is not None and cfg.num_devices > 1:
         raise NotImplementedError(
             f"num_devices={cfg.num_devices}: multi-device training is not "
-            "ported yet (ROADMAP.md Queue 1, item 4)")
-    # debug_nans: the JAX CLI traps a NaN at the op that made it
-    for knob in ("gns_every", "profile_epoch", "debug_nans"):
-        if cfg.extras.get(knob):
-            raise NotImplementedError(
-                f"{knob} is not ported yet (ROADMAP.md Queue 1, item 4)")
+            "ported yet (ROADMAP.md Queue 1, item 4.5)")
+    if cfg.extras.get("gns_every"):
+        raise NotImplementedError(
+            "gns_every (the gradient-noise-scale diagnostic) is not ported "
+            "yet (ROADMAP.md Queue 1, item 4.5)")
+
+
+class _ScalarWriter:
+    """The reference's four scalar tags (``train_worker.py:100-109``):
+    ``scalars.csv`` always, TensorBoard events as well where
+    ``torch.utils.tensorboard`` imports."""
+
+    def __init__(self, log_dir: str) -> None:
+        self._csv = open(os.path.join(log_dir, "scalars.csv"), "a")
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+        except ImportError:  # no tensorboard package: CSV only
+            self._tb = None
+        else:
+            self._tb = SummaryWriter(log_dir)
+
+    def add_scalar(self, tag: str, value: float, global_step: int) -> None:
+        self._csv.write(f"{global_step},{tag},{value}\n")
+        if self._tb is not None:
+            self._tb.add_scalar(tag, value, global_step=global_step)
+
+    def flush(self) -> None:
+        self._csv.flush()
+        if self._tb is not None:
+            self._tb.flush()
+
+    def close(self) -> None:
+        self._csv.close()
+        if self._tb is not None:
+            self._tb.close()
 
 
 class Trainer:
@@ -120,7 +162,8 @@ class Trainer:
             fused_augment=bool(extras.get("fused_augment", True)),
             remat=bool(extras.get("remat", False)),
             grad_accum_steps=int(extras.get("grad_accum_steps", 1)),
-            parity_mode=cfg.parity_mode, stain=cfg.stain)
+            parity_mode=cfg.parity_mode, stain=cfg.stain,
+            debug_nans=bool(extras.get("debug_nans", False)))
         self.eval_step = make_eval_step(self.model, cfg.img_size,
                                         self.objective, stain=cfg.stain)
         self.history: list = []
@@ -138,68 +181,114 @@ class Trainer:
         meta = restore_checkpoint(self.pth_path, self.model, self.optimizer)
         if meta is None:
             return 0, 0.0
-        previous_best = float(meta["previous_best"])
-        if "scheduler" in meta:
-            self.scheduler.load_state_dict(meta["scheduler"])
-        if "earlystop" in meta:
-            self.early_stopping.load_state_dict(meta["earlystop"])
-        set_lr(self.optimizer, self.scheduler.lr)
+        if self.cfg.parity_mode:
+            # the reference's quirk: the best resets on resume, and the
+            # scheduler and the early stop start afresh; the rate is the
+            # one saved, as the reference's optimizer state carries it
+            previous_best = 0.0
+            if "scheduler" in meta:
+                set_lr(self.optimizer, meta["scheduler"]["lr"])
+        else:
+            previous_best = float(meta["previous_best"])
+            if "scheduler" in meta:
+                self.scheduler.load_state_dict(meta["scheduler"])
+            if "earlystop" in meta:
+                self.early_stopping.load_state_dict(meta["earlystop"])
+            set_lr(self.optimizer, self.scheduler.lr)
         start = int(meta["epoch"]) + 1
         print(f"resumed from epoch {start - 1}, best={previous_best:.4f}",
               flush=True)
         return start, previous_best
 
     def train(self) -> dict:
-        cfg = self.cfg
         start_epoch, previous_best = self._resume()
+        saver, writer = AsyncCheckpointSaver(), _ScalarWriter(self.log_dir)
+        anomaly = (torch.autograd.set_detect_anomaly(True)
+                   if self.cfg.extras.get("debug_nans")
+                   else contextlib.nullcontext())
+        try:
+            with anomaly:
+                return self._train_epochs(start_epoch, previous_best, saver,
+                                          writer)
+        finally:
+            # an exception mid-epoch must not abandon the write in flight
+            saver.wait()
+            writer.close()
+
+    def _train_epoch(self, epoch: int, timer: StepTimer):
+        losses, scores = [], []
+        n_samples = 0
+        timer.reset()
+        for step, batch in enumerate(self.train_loader.epoch(epoch)):
+            timer.start()
+            try:
+                loss, score = self.train_step(
+                    batch.image, batch.mask, batch.valid,
+                    step_generator(self.cfg.seed, epoch, step))
+            except FloatingPointError as e:
+                raise FloatingPointError(
+                    f"epoch {epoch + 1}, step {step}: {e}") from e
+            timer.stop()
+            losses.append(loss)
+            scores.append(score)
+            n_samples += batch.image.shape[0]
+        if not losses:
+            raise RuntimeError("empty train epoch: check train_path")
+        return (float(torch.stack(losses).mean()),
+                float(torch.stack(scores).mean()), n_samples)
+
+    def _train_epochs(self, start_epoch: int, previous_best: float,
+                      saver: AsyncCheckpointSaver,
+                      writer: _ScalarWriter) -> dict:
+        cfg = self.cfg
         last_epoch = start_epoch
-        with open(os.path.join(self.log_dir, "scalars.csv"), "a") as csv:
-            for epoch in range(start_epoch, cfg.epochs):
-                last_epoch = epoch
-                t0 = time.time()
-                losses, scores = [], []
-                n_samples = 0
-                for step, batch in enumerate(self.train_loader.epoch(epoch)):
-                    loss, score = self.train_step(
-                        batch.image, batch.mask, batch.valid,
-                        step_generator(cfg.seed, epoch, step))
-                    losses.append(loss)
-                    scores.append(score)
-                    n_samples += batch.image.shape[0]
-                if not losses:
-                    raise RuntimeError("empty train epoch: check train_path")
-                train_loss = float(torch.stack(losses).mean())
-                train_score = float(torch.stack(scores).mean())
-                epoch_time = time.time() - t0
-                val_score, val_loss = self._validate()
+        profile_epoch = cfg.extras.get("profile_epoch")
+        timer = StepTimer()
+        for epoch in range(start_epoch, cfg.epochs):
+            last_epoch = epoch
+            t0 = time.time()
+            profiling = (profile_epoch is not None
+                         and epoch == int(profile_epoch))
+            profile_dir = os.path.join(self.log_dir, "profile")
+            with (trace(profile_dir, cuda=self.device.type == "cuda")
+                  if profiling else contextlib.nullcontext()):
+                train_loss, train_score, n_samples = self._train_epoch(
+                    epoch, timer)
+            epoch_time = time.time() - t0
+            val_score, val_loss = self._validate()
 
-                new_lr = self.scheduler.step(val_score)
-                set_lr(self.optimizer, new_lr)
-                print(f"epoch{epoch + 1}: Train_score:{train_score} "
-                      f"Train_loss:{train_loss} Val_score:{val_score} "
-                      f"Val_loss:{val_loss} "
-                      f"({n_samples / max(epoch_time, 1e-9):.1f} patches/s, "
-                      f"lr={new_lr:.2e})", flush=True)
-                for tag, value in zip(TAGS, (train_score, train_loss,
-                                             val_score, val_loss)):
-                    csv.write(f"{epoch + 1},{tag},{value}\n")
-                csv.flush()
+            new_lr = self.scheduler.step(val_score)
+            set_lr(self.optimizer, new_lr)
+            print(f"epoch{epoch + 1}: Train_score:{train_score} "
+                  f"Train_loss:{train_loss} Val_score:{val_score} "
+                  f"Val_loss:{val_loss} "
+                  f"({n_samples / max(epoch_time, 1e-9):.1f} patches/s, "
+                  f"lr={new_lr:.2e})", flush=True)
+            if profiling:
+                print(f"profile of epoch {epoch}: step times "
+                      f"{timer.summary()}; trace in {profile_dir}",
+                      flush=True)
+                for us, name, _ in device_op_summary(profile_dir, top=10):
+                    print(f"  {us / 1e3:10.3f} ms  {name}", flush=True)
+            for tag, value in zip(TAGS, (train_score, train_loss,
+                                         val_score, val_loss)):
+                writer.add_scalar(tag, value, epoch + 1)
+            writer.flush()
 
-                is_best = val_score > previous_best
-                previous_best = max(val_score, previous_best)
-                self.early_stopping(val_score)
-                save_checkpoint(self.pth_path, self.model, self.optimizer,
-                                epoch, previous_best,
-                                self.scheduler.state_dict(),
-                                self.early_stopping.state_dict(), is_best)
-                self.history.append({
-                    "epoch": epoch, "train_score": train_score,
-                    "train_loss": train_loss, "val_score": val_score,
-                    "val_loss": val_loss, "lr": new_lr,
-                    "epoch_time_s": epoch_time,
-                })
-                if self.early_stopping.early_stop:
-                    print("Early stopping!", flush=True)
-                    break
+            is_best = val_score > previous_best
+            previous_best = max(val_score, previous_best)
+            self.early_stopping(val_score)
+            saver.save(self.pth_path, self.model, self.optimizer, epoch,
+                       previous_best, self.scheduler.state_dict(),
+                       self.early_stopping.state_dict(), is_best)
+            self.history.append({
+                "epoch": epoch, "train_score": train_score,
+                "train_loss": train_loss, "val_score": val_score,
+                "val_loss": val_loss, "lr": new_lr,
+                "epoch_time_s": epoch_time, "step_time": timer.summary(),
+            })
+            if self.early_stopping.early_stop:
+                print("Early stopping!", flush=True)
+                break
         return {"best_val_score": previous_best, "last_epoch": last_epoch,
                 "history": self.history}

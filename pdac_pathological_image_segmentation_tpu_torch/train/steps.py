@@ -2,29 +2,34 @@
 the eval step and the tile→mask inference step.
 
 The train step is the reference's per-batch body (``train_worker.py:67-83``):
-augmentation (the fused kernel, ``ops/fused_augment.py``) → train-mode
-forward → Dice → backward (the GroupNorm backward kernel at every GN site)
-→ Adam.  It returns the loss and the score as tensors on the device and
-never waits for the card.
+augmentation (the fused kernel, ``ops/fused_augment.py``, where it applies;
+else the non-fused chain, ``ops/augment.py::train_transform``) → train-mode
+forward (recomputed in the backward under ``remat``) → the objective →
+backward (the GroupNorm backward kernel at every GN site) → Adam, over
+``grad_accum_steps`` microbatches.  It returns the loss and the score as
+tensors on the device and never waits for the card.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
 import torch.nn as nn
 from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from pdac_pathological_image_segmentation_tpu_torch.config import (
     IMAGENET_MEAN,
     IMAGENET_STD,
 )
 from pdac_pathological_image_segmentation_tpu_torch.ops.augment import (
-    check_supported,
     draw_augment_scalars,
     eval_images,
     eval_transform,
     make_augment_tables,
+    train_transform,
 )
 from pdac_pathological_image_segmentation_tpu_torch.ops.fused_augment import (
     fused_train_transform,
@@ -40,16 +45,6 @@ from pdac_pathological_image_segmentation_tpu_torch.train.objective import (
 )
 
 STEM = "encoder.conv1.weight"
-_NOT_PORTED = {
-    "remat": "remat (activation recomputation) is not ported yet "
-             "(ROADMAP.md Queue 1, item 4)",
-    "grad_accum_steps": "grad_accum_steps > 1 is not ported yet "
-                        "(ROADMAP.md Queue 1, item 4)",
-    "fused_augment": "fused_augment: false would run the plain augmentation "
-                     "on the card, which the port does not do (the plain "
-                     "chain is the kernel's reference only; ROADMAP.md "
-                     "Queue 1, item 4)",
-}
 
 
 def step_generator(seed: int, epoch: int, step: int) -> torch.Generator:
@@ -62,51 +57,160 @@ def step_generator(seed: int, epoch: int, step: int) -> torch.Generator:
         int(state[0]) << 32 | int(state[1]))
 
 
+def can_fuse_augment(image_shape, img_size: int, parity_mode: bool,
+                     stain: str, dtype: torch.dtype) -> bool:
+    """Whether the train step takes the fused augmentation (the JAX
+    ``_can_fuse_augment``): a bfloat16 chain, square uint8 tiles at
+    ``img_size`` with ``img_size % 8 == 0``, default mode, no stain.  On a
+    CUDA tensor that is the kernel, on a CPU tensor its plain version."""
+    if parity_mode or stain != "none" or dtype != torch.bfloat16:
+        return False
+    if tuple(image_shape[1:3]) != (img_size, img_size):
+        return False
+    return img_size % 8 == 0
+
+
+def _frozen_batchnorm(model: nn.Module):
+    """A context that puts ``model``'s BatchNorm buffers (running
+    statistics, ``num_batches_tracked``) back as it found them: the
+    recompute of a remat step runs in it, so the buffers move once per
+    step, as the JAX package's (whose statistics are an output of the one
+    forward).  The recompute itself runs BatchNorm as the forward did, so
+    it saves the same tensors."""
+    bufs = [b for m in model.modules()
+            if isinstance(m, nn.modules.batchnorm._BatchNorm)
+            for b in m.buffers()]
+
+    @contextlib.contextmanager
+    def frozen():
+        kept = [b.clone() for b in bufs]
+        try:
+            yield
+        finally:
+            for b, k in zip(bufs, kept):
+                b.copy_(k)
+
+    return lambda: (contextlib.nullcontext(), frozen())
+
+
+def remat_forward(model: nn.Module):
+    """``forward(x, generator)``: ``model(x, generator)`` under
+    ``torch.utils.checkpoint`` (non-reentrant), the JAX ``jax.checkpoint``
+    of the forward.  The backward recomputes the activations with the
+    first run's draws (a generator restored to the state the first run
+    started from: checkpoint's own RNG stashing covers only the default
+    generators), and puts the BatchNorm buffers back after it
+    (:func:`_frozen_batchnorm`)."""
+    context_fn = _frozen_batchnorm(model)
+
+    def forward(x: torch.Tensor, generator: torch.Generator | None):
+        start = None if generator is None else generator.get_state()
+        runs = []
+
+        def run(inp):
+            g = generator
+            if runs and generator is not None:  # the recompute
+                g = torch.Generator(device=generator.device)
+                g.set_state(start)
+            runs.append(None)
+            return model(inp, g)
+
+        return checkpoint(run, x, use_reentrant=False,
+                          context_fn=context_fn, preserve_rng_state=False)
+
+    return forward
+
+
 def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                     img_size: int, objective: Objective,
                     augment: bool = True, fused_augment: bool = True,
                     remat: bool = False, grad_accum_steps: int = 1,
-                    parity_mode: bool = False, stain: str = "none"):
+                    parity_mode: bool = False, stain: str = "none",
+                    debug_nans: bool = False):
     """``step(images_u8, masks_u8, valid, generator) → (loss, score)``.
 
-    ``images_u8`` (N, S, S, 3) and ``masks_u8`` (N, S, S) uint8 and
+    ``images_u8`` (N, H, W, 3) and ``masks_u8`` (N, H, W) uint8 and
     ``valid`` (N,) bool lie on the model's device; ``valid`` False marks
     the wrap-padded samples of a final partial batch, which pass through
     BatchNorm's batch statistics but not the loss or the score.  The
-    augmentation is the fused kernel on bf16 (the JAX package's default
-    where the kernel applies); ``augment=False`` takes ``eval_transform``
-    in float32, as the JAX step does, and the model rounds it once to its
-    compute dtype at its input.  The score is taken on the pre-update
-    forward (``steps.py:92-94`` of the JAX package)."""
-    if remat:
-        raise NotImplementedError(_NOT_PORTED["remat"])
-    if grad_accum_steps != 1:
-        raise NotImplementedError(_NOT_PORTED["grad_accum_steps"])
-    if augment and not fused_augment:
-        raise NotImplementedError(_NOT_PORTED["fused_augment"])
-    check_supported(parity_mode, stain)
+    augmentation is the fused kernel where :func:`can_fuse_augment` holds
+    and ``fused_augment`` is on, else ``train_transform`` in the model's
+    compute dtype (``parity_mode``, ``stain``, tiles not at ``img_size``, a
+    float32 model); ``augment=False`` takes ``eval_transform`` in float32
+    (with the stain), as the JAX step does, and the model rounds it once
+    to its compute dtype at its input.
 
-    def step(images, masks, valid, generator: torch.Generator):
-        model.train()
-        if augment:
-            if tuple(images.shape[1:3]) != (img_size, img_size):
-                raise ValueError(
-                    f"the fused augmentation takes tiles at img_size "
-                    f"{img_size}, got {tuple(images.shape[1:3])} (resize on "
-                    "ingest is not ported for training)")
+    ``remat`` recomputes the forward in the backward
+    (:func:`remat_forward`).  ``grad_accum_steps = k`` splits the batch
+    into k microbatches, each a forward and a backward in turn (BatchNorm's
+    running statistics chain through them), sums their gradients, divides
+    by k and takes one Adam update; the loss and the score are the means
+    over the microbatches.  The score is taken on the pre-update forward
+    (``steps.py:92-94`` of the JAX package).  ``debug_nans`` checks each
+    microbatch's loss before its backward and the gradients before the
+    update (the host waits for the card there), raising
+    ``FloatingPointError`` that names the first non-finite tensor."""
+    check_method(stain)
+    k = int(grad_accum_steps)
+    if k < 1:
+        raise ValueError(f"grad_accum_steps must be >= 1, got {k}")
+    dtype = getattr(model, "compute_dtype", torch.float32)
+    forward = remat_forward(model) if remat else model
+
+    def augment_batch(images, masks, generator):
+        if not augment:
+            return eval_transform(images, masks, img_size, stain=stain)
+        if fused_augment and can_fuse_augment(images.shape, img_size,
+                                              parity_mode, stain, dtype):
             facs, ints = draw_augment_scalars(images.shape[0], generator)
             tables = make_augment_tables(facs, ints).to(images.device)
-            imgs, msks = fused_train_transform(images, masks, tables)
-        else:
-            imgs, msks = eval_transform(images, masks, img_size)
-        out = model(imgs, generator)
+            return fused_train_transform(images, masks, tables)
+        return train_transform(images, masks, img_size, generator,
+                               parity_mode=parity_mode, stain=stain,
+                               dtype=dtype)
+
+    def micro(imgs, msks, valid, generator):
+        out = forward(imgs, generator)
         loss = objective.loss_fn(out, msks, valid)
-        optimizer.zero_grad(set_to_none=True)
+        if debug_nans and not torch.isfinite(loss):
+            raise FloatingPointError(f"non-finite loss {loss.detach().item()}")
         loss.backward()
-        optimizer.step()
         with torch.no_grad():
             score = objective.score_fn(out, msks, valid)
         return loss.detach(), score
+
+    def step(images, masks, valid, generator: torch.Generator):
+        n = images.shape[0]
+        if n % k:
+            raise ValueError(f"batch {n} does not divide into "
+                             f"grad_accum_steps={k} microbatches")
+        model.train()
+        imgs, msks = augment_batch(images, masks, generator)
+        optimizer.zero_grad(set_to_none=True)
+        if k == 1:
+            loss, score = micro(imgs, msks, valid, generator)
+        else:
+            if valid is None:
+                valid = torch.ones(n, dtype=torch.bool, device=imgs.device)
+            m = n // k
+            loss = score = 0.0
+            for i in range(k):
+                part = slice(i * m, (i + 1) * m)
+                li, si = micro(imgs[part], msks[part], valid[part],
+                               generator)
+                loss, score = loss + li, score + si
+            for p in model.parameters():
+                if p.grad is not None:
+                    p.grad.div_(k)
+            loss, score = loss / k, score / k
+        if debug_nans:
+            bad = next((name for name, p in model.named_parameters()
+                        if p.grad is not None
+                        and not torch.isfinite(p.grad).all()), None)
+            if bad is not None:
+                raise FloatingPointError(f"non-finite gradient of {bad}")
+        optimizer.step()
+        return loss, score
 
     return step
 

@@ -30,13 +30,12 @@ from pdac_pathological_image_segmentation_tpu.ops.pallas.fused_augment import (
 from pdac_pathological_image_segmentation_tpu_torch.ops.augment import (
     AugmentTables,
     apply_one_of_geom,
-    check_supported,
     draw_augment_scalars,
     eval_transform,
+    fused_chain_bf16,
     geom_bits,
     jitter_slot_params,
     make_augment_tables,
-    train_transform,
 )
 from pdac_pathological_image_segmentation_tpu_torch.ops.fused_augment import (
     TILE,
@@ -95,8 +94,8 @@ def _assert_bound(got_i, ref_i, got_m, ref_m):
 
 
 def _port_nhwc(images, masks, tables):
-    out, m = train_transform(torch.from_numpy(images),
-                             torch.from_numpy(masks), tables)
+    out, m = fused_chain_bf16(torch.from_numpy(images),
+                              torch.from_numpy(masks), tables)
     assert out.dtype == torch.bfloat16 and m.dtype == torch.float32
     assert out.shape == (images.shape[0], 3, S, S) and out.is_contiguous()
     return out.float().numpy().transpose(0, 2, 3, 1), m.numpy()
@@ -226,14 +225,6 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
             geom=tables.geom.long()))
     with pytest.raises(ValueError, match="tables.a_mats"):
         fused_train_transform(img[:1], msk[:1], tables)
-
-
-@pytest.mark.parametrize("knob", ["parity_mode", "stain"])
-def test_unported_options_name_the_roadmap(knob):
-    kwargs = {"parity_mode": True} if knob == "parity_mode" \
-        else {"stain": "macenko"}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        check_supported(**kwargs)
 
 
 def test_lookup_tables_are_the_plain_chain_bit_for_bit():

@@ -17,8 +17,7 @@ int8 path's ``quantize_from_config``) against the JAX package, on the CPU.
   (probabilities within 5e-4, the FPN bound) and ``eval_transform``
   against the JAX one; ``quantize_from_config`` with ``stain: reinhard``:
   its float mirror equal to the model's stained infer step (the JAX
-  ``test_quantize_from_config_applies_stain``); training with stain still
-  raises, naming where it waits.
+  ``test_quantize_from_config_applies_stain``); an unknown method raises.
 * Macenko does not depend on the eigensolver's signs: with any of the
   plane's eigenvectors negated the result is the same, bit for bit, on
   H&E-like tiles and on patches with no stain plane (colour noise and a
@@ -56,7 +55,6 @@ from pdac_pathological_image_segmentation_tpu_torch.infer import quantized as q
 from pdac_pathological_image_segmentation_tpu_torch.models import build_model
 from pdac_pathological_image_segmentation_tpu_torch.ops import stain
 from pdac_pathological_image_segmentation_tpu_torch.ops.augment import (
-    check_supported,
     eval_transform,
 )
 from pdac_pathological_image_segmentation_tpu_torch.train.steps import (
@@ -290,9 +288,6 @@ def test_one_colour_tile_gives_what_jax_gives():
     np.testing.assert_array_equal(np.isfinite(got), np.isfinite(want))
 
 
-def test_training_with_stain_still_raises():
-    with pytest.raises(NotImplementedError,
-                       match="fused_augment: false.*ROADMAP"):
-        check_supported(stain="macenko")
+def test_unknown_stain_method_raises():
     with pytest.raises(ValueError, match="unknown stain method"):
         stain.apply_stain_batch(torch.zeros(1, 4, 4, 3), "vahadane")

@@ -44,6 +44,9 @@ from pdac_pathological_image_segmentation_tpu.models import (
     build_model as jax_build_model,
 )
 from pdac_pathological_image_segmentation_tpu.models.fpn import FPN as JaxFPN
+from pdac_pathological_image_segmentation_tpu.ops import (
+    augment as jax_augment,
+)
 from pdac_pathological_image_segmentation_tpu.ops.augment import (
     eval_transform as jax_eval_transform,
 )
@@ -92,10 +95,12 @@ from pdac_pathological_image_segmentation_tpu_torch.train.checkpoint import (
     restore_checkpoint,
     save_checkpoint,
 )
+from pdac_pathological_image_segmentation_tpu_torch.ops.augment import (
+    draw_augment_scalars,
+)
 from pdac_pathological_image_segmentation_tpu_torch.train.loop import (
     TAGS,
     Trainer,
-    check_supported,
 )
 from pdac_pathological_image_segmentation_tpu_torch.train.objective import (
     make_objective,
@@ -334,17 +339,42 @@ def test_infer_step_puts_a_train_mode_model_in_eval_mode(model_name, convert):
     np.testing.assert_allclose(ours, ref, rtol=0, atol=5e-4)
 
 
-@pytest.mark.parametrize("knob,value", [("remat", True),
-                                        ("grad_accum_steps", 2),
-                                        ("fused_augment", False),
-                                        ("parity_mode", True),
-                                        ("stain", "reinhard")])
-def test_unported_step_options_name_the_roadmap(knob, value):
+def test_f32_step_augments_in_f32_as_jax():
+    """With ``compute_dtype: float32`` the model's augmented input is the
+    JAX ``train_transform(..., dtype=float32)`` of the step's draws (the
+    JAX step sends a model that is not bf16 through that chain), within
+    1e-6 plus 1e-6 relative (the two libraries' jitter tables and slot
+    sums, one f32 rounding apart); the masks bitwise."""
     cfg = Config(model="fpn", img_size=SIZE, compute_dtype="float32")
     model = build_model(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_train_step(model, make_optimizer(model, LR), SIZE,
-                        make_objective(cfg), **{knob: value})
+    seen = {}
+    model.register_forward_pre_hook(
+        lambda mod, args: seen.__setitem__("x", args[0].detach().clone()))
+    obj = make_objective(cfg)
+    objective = obj._replace(loss_fn=lambda out, m, v: (
+        seen.__setitem__("m", m.clone()), obj.loss_fn(out, m, v))[1])
+    step = make_train_step(model, make_optimizer(model, LR), SIZE, objective)
+    rng = np.random.default_rng(12)
+    images = rng.integers(0, 256, (4, SIZE, SIZE, 3), dtype=np.uint8)
+    masks = rng.integers(0, 2, (4, SIZE, SIZE), dtype=np.uint8)
+    step(torch.from_numpy(images), torch.from_numpy(masks),
+         torch.ones(4, dtype=torch.bool), step_generator(0, 0, 0))
+    facs, ints = draw_augment_scalars(4, step_generator(0, 0, 0))
+    assert seen["x"].dtype == torch.float32
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_augment, "draw_augment_scalars",
+                   lambda key, n, **kw: (jnp.asarray(facs.numpy()),
+                                         jnp.asarray(ints.numpy())))
+        jax.clear_caches()
+        try:
+            want, want_m = jax_augment.train_transform(
+                jax.random.PRNGKey(0), jnp.asarray(images),
+                jnp.asarray(masks), img_size=SIZE, dtype=jnp.float32)
+        finally:
+            jax.clear_caches()
+    np.testing.assert_allclose(seen["x"].numpy().transpose(0, 2, 3, 1),
+                               np.asarray(want), rtol=1e-6, atol=1e-6)
+    np.testing.assert_array_equal(seen["m"].numpy(), np.asarray(want_m))
 
 
 # -- Dropout2d ---------------------------------------------------------------
@@ -390,11 +420,6 @@ def test_objective_matches_jax(loss, with_valid):
         want = float(ref_fn(jnp.asarray(logits.transpose(0, 2, 3, 1)),
                             jnp.asarray(masks), jv))
         assert abs(got - want) < 1e-6, (got, want)
-
-
-def test_multiclass_objective_names_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_objective(Config(num_classes=3))
 
 
 SCORES = [0.1, 0.3, 0.3, 0.30005, 0.2999, 0.31, 0.5, 0.5, 0.49, 0.48, 0.6,
@@ -627,7 +652,7 @@ def test_checkpoint_round_trip_restores_model_and_adam(tmp_path):
     assert restore_checkpoint(str(tmp_path / "none"), fresh, fresh_opt) is None
 
 
-@pytest.mark.parametrize("knob", ["num_devices", "gns_every", "profile_epoch"])
+@pytest.mark.parametrize("knob", ["num_devices", "gns_every"])
 def test_unported_trainer_options_name_the_roadmap(knob, data_root, tmp_path):
     raw = {"model": "fpn", "img_size": SIZE, "compute_dtype": "float32",
            "batch_size": 4}
@@ -640,16 +665,43 @@ def test_unported_trainer_options_name_the_roadmap(knob, data_root, tmp_path):
 
 
 @pytest.mark.parametrize("value", [True, False])
-def test_debug_nans_raises_until_ported(value):
-    """``debug_nans: true`` (the JAX CLI's NaN trap) raises naming the
-    roadmap instead of training without the trap; false trains."""
-    cfg = Config.from_dict({"model": "fpn", "img_size": SIZE,
-                            "debug_nans": value})
-    if value:
-        with pytest.raises(NotImplementedError, match="ROADMAP.*Queue 1"):
-            check_supported(cfg)
-    else:
-        check_supported(cfg)
+def test_debug_nans_traps_a_nan_weight_as_the_jax_cli(value, data_root,
+                                                       tmp_path):
+    """``debug_nans: true`` with a NaN in the ImageNet file's first conv:
+    the JAX CLI (``jax_debug_nans``) and the port's both raise
+    ``FloatingPointError``, the port's naming the epoch, the step and the
+    tensor; with the file's weights finite, the same run trains."""
+    from torch_model_parity import encoder_file_npz
+
+    path = tmp_path / "resnet18.npz"
+    encoder_file_npz(path, nan_at="conv1.weight" if value else None)
+    raw = {"train_path": str(data_root / "train"),
+           "val_path": str(data_root / "val"), "model": "unet",
+           "img_size": SIZE, "batch_size": 4, "epochs": 1, "lr": LR,
+           "num_worker": 2, "compute_dtype": "float32", "augment": False,
+           "pretrained_path": str(path), "debug_nans": True,
+           "num_devices": 1}
+    cfg_path = tmp_path / "cfg.yaml"
+    cfg_path.write_text(yaml.safe_dump(raw))
+    argv = ["--config", str(cfg_path), "--save_path", str(tmp_path / "out")]
+    if not value:
+        result = cli_train.main(argv + ["--device", "cpu"])
+        assert math.isfinite(result["history"][0]["train_loss"])
+        return
+    with pytest.raises(FloatingPointError,
+                       match=r"epoch 1, step 0: non-finite loss"):
+        cli_train.main(argv + ["--device", "cpu"])
+    assert not (tmp_path / "out" / "pth" / "latest.pth").exists()
+    from pdac_pathological_image_segmentation_tpu.cli import (
+        train as jax_cli_train,
+    )
+
+    try:
+        with pytest.raises(FloatingPointError):
+            jax_cli_train.main(["--config", str(cfg_path), "--save_path",
+                                str(tmp_path / "jax_out")])
+    finally:
+        jax.config.update("jax_debug_nans", False)
 
 
 def test_trainer_initial_weights_follow_the_seed(data_root, tmp_path):

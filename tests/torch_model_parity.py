@@ -182,33 +182,44 @@ def assert_round_trip(sd, variables, from_jax) -> None:
         assert back[k].dtype == v.dtype and torch.equal(back[k], v), k
 
 
-def _batch(seed, n=4):
+def _batch(seed, n=4, classes=1):
+    """Images, masks (binary, or ids ``0..classes-1``) and ``valid``."""
     rng = np.random.default_rng(seed)
     images = rng.integers(0, 256, (n, SIZE, SIZE, 3), dtype=np.uint8)
-    masks = (rng.random((n, SIZE, SIZE)) < 0.4).astype(np.uint8)
+    if classes == 1:
+        masks = (rng.random((n, SIZE, SIZE)) < 0.4).astype(np.uint8)
+    else:
+        masks = rng.integers(0, classes, (n, SIZE, SIZE), dtype=np.uint8)
     valid = np.array([True] * (n - 1) + [False])  # one wrap-padded sample
     return images, masks, valid
 
 
 def one_step(model_name, model, sd, convert, from_jax,
-             jax_grads: bool = True, backbone: str = "resnet18") -> dict:
+             jax_grads: bool = True, backbone: str = "resnet18",
+             cfg_kw: dict | None = None, step_kw: dict | None = None
+             ) -> dict:
     """One train step of the port ``model`` (holding ``sd``, dropout off)
     and of the JAX model on ``backbone`` with dropout off: the loss, score,
     gradients, parameters after Adam and BN statistics of both, in the
     port's names.  Parameters that get no gradient on the port are left
     out of ``grads``; ``jax_grads=False`` skips ``jax.grad`` (``jgrads``
-    None)."""
-    images, masks, valid = _batch(0)
+    None).  ``cfg_kw`` goes into both configs (``num_classes`` draws masks
+    of that many classes), ``step_kw`` (``remat``, ``grad_accum_steps``)
+    into both step factories; with ``grad_accum_steps = k`` JAX's gradient
+    is the mean of ``jax.grad`` over the k microbatches."""
+    cfg_kw, step_kw = cfg_kw or {}, step_kw or {}
+    k = int(step_kw.get("grad_accum_steps", 1))
+    images, masks, valid = _batch(0, classes=cfg_kw.get("num_classes", 1))
     opt = make_optimizer(model, LR)
     step = make_train_step(model, opt, SIZE,
-                           make_objective(port_cfg(model_name)),
-                           augment=False)
+                           make_objective(port_cfg(model_name, **cfg_kw)),
+                           augment=False, **step_kw)
     loss, score = step(torch.from_numpy(images), torch.from_numpy(masks),
                        torch.from_numpy(valid), step_generator(0, 0, 0))
     grads = {k: p.grad.clone() for k, p in model.named_parameters()
              if p.grad is not None}
 
-    jcfg = jax_cfg(model_name, backbone=backbone)
+    jcfg = jax_cfg(model_name, backbone=backbone, **cfg_kw)
     with flax_dropout_off():
         jmodel = jax_build_model(jcfg)
         state = jax_train_state(jcfg, jmodel)
@@ -217,22 +228,27 @@ def one_step(model_name, model, sd, convert, from_jax,
             state.batch_stats)
         state = state.replace(params=params, batch_stats=batch_stats)
         jobj = jax_make_objective(jcfg)
-        jvalid = jnp.asarray(valid)
 
-        def loss_fn(p):
-            imgs, msks = jax_eval_transform(jnp.asarray(images),
-                                            jnp.asarray(masks),
+        def loss_fn(p, part):
+            imgs, msks = jax_eval_transform(jnp.asarray(images[part]),
+                                            jnp.asarray(masks[part]),
                                             img_size=SIZE)
             out, _ = jmodel.apply({"params": p, "batch_stats": batch_stats},
                                   imgs, train=True, mutable=["batch_stats"])
-            return jobj.loss_fn(out, msks, jvalid)
+            return jobj.loss_fn(out, msks, jnp.asarray(valid[part]))
 
-        jgrads = jax.jit(jax.grad(loss_fn))(params) if jax_grads else None
+        jgrads = None
+        if jax_grads:
+            m = len(images) // k
+            parts = [jax.jit(jax.grad(loss_fn), static_argnums=1)(
+                params, slice(i * m, (i + 1) * m)) for i in range(k)]
+            jgrads = jax.tree_util.tree_map(lambda *g: sum(g) / k, *parts)
         jstep = jax_make_train_step(jmodel, SIZE, objective=jobj,
-                                    donate=False, augment=False)
+                                    donate=False, augment=False, **step_kw)
         new_state, jloss, jscore = jstep(state, jax.random.PRNGKey(1),
                                          jnp.asarray(images),
-                                         jnp.asarray(masks), jvalid)
+                                         jnp.asarray(masks),
+                                         jnp.asarray(valid))
     jg = {} if jgrads is None else from_jax(np_tree(jgrads),
                                             np_tree(batch_stats))
     return {
@@ -305,23 +321,26 @@ def batchnorm_inputs(model) -> dict:
     return feats
 
 
-def assert_step_batchnorm(step) -> list:
+def assert_step_batchnorm(step, micro: int = 1) -> list:
     """Running means within 1e-5; running variances within 1e-4 relative
     once torch's unbiased batch variance is brought back to flax's biased
-    one (through each BatchNorm's own momentum).  Returns the names of the
+    one (through each BatchNorm's own momentum).  With ``micro``
+    microbatches the statistics chain through ``micro`` updates, each over
+    a ``1/micro`` of the batch: the old value decays by ``(1 − m)^micro``
+    and the rest is a sum of batch variances.  Returns the names of the
     BatchNorms that ran."""
     model, sd, jparams = step["model"], step["sd"], step["jparams"]
     state = model.state_dict()
     feats = batchnorm_inputs(model)
     for name, x in feats.items():
-        n = x.shape[0] * x.shape[2] * x.shape[3]
+        n = x.shape[0] // micro * x.shape[2] * x.shape[3]
         np.testing.assert_allclose(state[f"{name}.running_mean"].numpy(),
                                    jparams[f"{name}.running_mean"].numpy(),
                                    rtol=0, atol=1e-5, err_msg=name)
         m = model.get_submodule(name).momentum
-        old = sd[f"{name}.running_var"].numpy()
-        b_torch = (state[f"{name}.running_var"].numpy() - (1 - m) * old) / m
-        b_flax = (jparams[f"{name}.running_var"].numpy() - (1 - m) * old) / m
+        old = sd[f"{name}.running_var"].numpy() * (1 - m) ** micro
+        b_torch = (state[f"{name}.running_var"].numpy() - old) / m
+        b_flax = (jparams[f"{name}.running_var"].numpy() - old) / m
         np.testing.assert_allclose(b_torch * (n - 1) / n, b_flax, rtol=1e-4,
                                    atol=1e-5, err_msg=name)
     return sorted(feats)
@@ -504,7 +523,8 @@ def assert_cli_train_and_resume(model_name, tmp_path, capsys,
     return results[0]
 
 
-def f64_gradients(model_name, model, jmodel64, variables, from_jax) -> tuple:
+def f64_gradients(model_name, model, jmodel64, variables, from_jax,
+                  cfg_kw: dict | None = None) -> tuple:
     """The gradients of the step's loss (the batch of :func:`one_step`,
     ``eval_transform``'s input, batch statistics, dropout off) in float64
     on both sides: a float64 copy of the port ``model``, and ``jmodel64``
@@ -518,13 +538,14 @@ def f64_gradients(model_name, model, jmodel64, variables, from_jax) -> tuple:
         eval_transform,
     )
 
-    images, masks, valid = _batch(0)
+    cfg_kw = cfg_kw or {}
+    images, masks, valid = _batch(0, classes=cfg_kw.get("num_classes", 1))
     model = copy.deepcopy(model).double().train()
     model.compute_dtype = torch.float64
     imgs, msks = eval_transform(torch.from_numpy(images),
                                 torch.from_numpy(masks), SIZE)
     out = model(imgs.double(), step_generator(0, 0, 0))
-    make_objective(port_cfg(model_name)).loss_fn(
+    make_objective(port_cfg(model_name, **cfg_kw)).loss_fn(
         out, msks, torch.from_numpy(valid)).backward()
     ours = {k: p.grad for k, p in model.named_parameters()
             if p.grad is not None}
@@ -534,7 +555,7 @@ def f64_gradients(model_name, model, jmodel64, variables, from_jax) -> tuple:
             for t in variables)
         jimgs, jmsks = jax_eval_transform(jnp.asarray(images),
                                           jnp.asarray(masks), img_size=SIZE)
-        jobj = jax_make_objective(jax_cfg(model_name))
+        jobj = jax_make_objective(jax_cfg(model_name, **cfg_kw))
 
         def loss_fn(p):
             out, _ = jmodel64.apply({"params": p, "batch_stats": batch_stats},
@@ -546,3 +567,50 @@ def f64_gradients(model_name, model, jmodel64, variables, from_jax) -> tuple:
     theirs = from_jax(jgrads, np_tree(batch_stats))
     return ours, {k: v for k, v in theirs.items()
                   if not k.endswith(BN_BUFFERS)}
+
+
+def encoder_file_npz(path, seed: int = 0, nan_at: str | None = None) -> None:
+    """A seeded torchvision resnet18 ImageNet file in the ``.npz`` layout
+    (torch names, ``fc`` included); with ``nan_at``, that tensor's first
+    element NaN."""
+    from pdac_pathological_image_segmentation_tpu_torch.models.encoders import (
+        build_encoder,
+    )
+    from pdac_pathological_image_segmentation_tpu_torch.utils.torch_weights import (
+        seeded_state_dict,
+    )
+
+    rng = np.random.default_rng(seed)
+    arrays = {k: v.numpy().copy() for k, v in seeded_state_dict(
+        build_encoder("resnet18"), seed=seed).items()}
+    arrays["fc.weight"] = rng.normal(0, 0.05, (1000, 512)).astype(np.float32)
+    arrays["fc.bias"] = np.zeros(1000, np.float32)
+    if nan_at is not None:
+        arrays[nan_at].flat[0] = np.nan
+    np.savez(path, **arrays)
+
+
+def write_class_patches(root, n: int, seed: int, classes: int = 3,
+                        size: int = SIZE) -> None:
+    """``n`` image/mask PNG pairs in the reference's layout whose masks
+    hold class ids ``0..classes-1``: smooth colour noise with one tinted
+    disc per class above 0, each class's disc its own tint."""
+    from PIL import Image
+
+    root.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:size, :size]
+    tints = rng.uniform(40, 220, (classes, 3))
+    for i in range(n):
+        img = rng.uniform(150, 230, (size, size, 3))
+        img += rng.normal(0, 10, img.shape)
+        mask = np.zeros((size, size), np.uint8)
+        for c in range(1, classes):
+            cy, cx = rng.integers(size // 6, 5 * size // 6, 2)
+            r = rng.integers(size // 8, size // 4)
+            disc = (yy - cy) ** 2 + (xx - cx) ** 2 < r * r
+            mask[disc] = c
+            img[disc] = 0.4 * img[disc] + 0.6 * tints[c]
+        Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+            root / f"patch_{i:04d}.png")
+        Image.fromarray(mask).save(root / f"patch_{i:04d}-labelled.png")
