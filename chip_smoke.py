@@ -6,7 +6,9 @@ Phases, each of which fails the run (exit code 1) on any error:
 
 1. environment: the card's name and power limit, torch/CUDA versions;
 2. build every CUDA kernel of the port from ``csrc/`` (one nvcc per
-   source, all started together) into ``build/torch_kernels/``;
+   source, all started together) into ``build/torch_kernels/``, and beside
+   them with g++ the native PNG decoder the trainer's loader reads through
+   (``build/native/``);
 3. kernel vs plain, each row timed beside its plain version, one PyTorch
    call where one computes the same function (a yardstick only) and the
    least time the card could take; each row's ``ms`` is back-to-back calls
@@ -30,7 +32,10 @@ Phases, each of which fails the run (exit code 1) on any error:
    * ``group_norm_relu_backward`` the same way at the same sites at the
      smoke's training batch (32) in bf16 and f32 and at the config's batch
      (128) in bf16, plus N=8 at 128² (a multi-split streaming pass) and a
-     7x7 case; every design is run twice and must repeat bitwise;
+     7x7 case; every design is run twice and must repeat bitwise; after
+     the main paths, both GN kernels the same way at every other key a
+     path launched them under (the sweep's partial batches, the int8
+     overlay's f32 bucket 16); a launched key without a row fails the run;
    * ``fused_train_transform`` at 512² and batch 32 and 128 on tables
      that take all seven geometry cases with the jitter on and off, at
      batch 128 on the trainer's own draws (``draw_augment_scalars``,
@@ -159,12 +164,28 @@ Phases, each of which fails the run (exit code 1) on any error:
    what two plain steps differ by, every parameter within 2·lr after
    Adam), the timed step at 128, and ``cli.train``.  The non-fused paths launch
    no augmentation kernel.
+12. the tools and the host data path, each a main path: 12a
+   ``generate_synthetic_patches`` (128 pairs at 512²), timed; 12b
+   ``PatchLoader`` over them on the card at batch 32 with the native
+   decoder and with PIL, 3 epochs each (every batch bitwise equal, no PNG
+   through the decoder's PIL path), pairs/s beside phase 6's FPN step,
+   and the trainer's FPN epoch at 128 fed by its loader, native and PIL
+   in turn in one run, beside the same step with its batch on the card;
+   12c ``cli.extract`` on phase 9's tiled TIFF and GeoJSON at downsample 1
+   and 2 (names, label tiles against ``rasterize_shapes``, image tiles
+   against ``read_region``, every pair through the native loader); 12d
+   ``serve_and_loadtest`` at ``bench.py --mode serve``'s settings (32
+   closed-loop clients, 640 requests, buckets 1/8/32) on the FPN (f32 and
+   u8 responses) and ResUNet artifacts, GN launches 7 per forward; 12e
+   ``run_sweep`` with phase 5's FPN over two numpy slides and the tiled
+   TIFF (against direct runs, files read back, ``sharded=True`` raises).
 
 Each phase ends with a ``[phase] name: seconds`` line (wall time since
 the previous one).  Before the ``kernels`` line a ``{"models": ...}`` line
 sums up the new
-models' numbers (``int8`` and ``stain`` among them) and a ``{"wsi_host":
-..., "wsi_40k_device": ...}`` line the timed slides.  The
+models' numbers (``int8`` and ``stain`` among them), a ``{"tools": ...}``
+line phase 12's and a ``{"wsi_host": ..., "wsi_40k_device": ...}`` line
+the timed slides.  The
 line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 package beside this file, it exits non-zero and prints no result.
@@ -314,12 +335,23 @@ def phase_environment() -> str:
 # -- phase 2 ----------------------------------------------------------------
 
 def phase_build() -> None:
+    """Every CUDA kernel, and beside them with g++ the native PNG decoder
+    the trainer's loader reads through: a failed build stops the run before
+    any path starts."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pdac_pathological_image_segmentation_tpu_torch.data import (
+        native_loader,
+    )
     from pdac_pathological_image_segmentation_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    paths = _build.build_all()
-    log(f"[build] {len(paths)} kernel libraries in "
-        f"{time.perf_counter() - t0:.1f} s: "
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        png = pool.submit(native_loader.build)
+        paths = _build.build_all()
+        paths.append(png.result())
+    log(f"[build] {len(paths) - 1} kernel libraries and the native PNG "
+        f"decoder in {time.perf_counter() - t0:.1f} s: "
         + ", ".join(str(p.relative_to(ROOT)) for p in paths))
 
 
@@ -396,7 +428,10 @@ def _variant_fields(plan, occupancy) -> dict:
             "max_active_clusters": occupancy}
 
 
-def phase_kernels() -> list:
+def phase_kernels(cases: list | None = None) -> list:
+    """``group_norm_relu``'s designs against its plain version at ``cases``
+    ``(n, c, h, w, groups, relu, dtype)``: by default the served buckets',
+    the config batch's and a few off the paths."""
     import torch.nn.functional as F
 
     from pdac_pathological_image_segmentation_tpu_torch.ops.group_norm import (
@@ -407,23 +442,25 @@ def phase_kernels() -> list:
     set_tf32(False)
     warm_card()
     sm_count = torch.cuda.get_device_properties(0).multi_processor_count
-    cases = [(n, 128, hw, 32, True, dt)
-             for dt in (torch.bfloat16, torch.float32)
-             for n in BUCKETS for hw in GN_SITES]
-    # the timed train step's batch, and the int8 whole-slide paths' (f32
-    # GN at the config's batch)
-    cases += [(CONFIG_BATCH, 128, hw, 32, True, dt)
-              for dt in (torch.bfloat16, torch.float32) for hw in GN_SITES]
-    # off the served path: no ReLU, and planes that are not a whole number
-    # of 16-byte vectors (the plan sends them to the streaming design, with
-    # scalar accesses)
-    cases += [(32, 64, 64, 16, False, torch.float32),
-              (8, 128, 7, 32, True, torch.bfloat16),
-              (8, 128, 7, 32, True, torch.float32)]
+    if cases is None:
+        cases = [(n, 128, hw, hw, 32, True, dt)
+                 for dt in (torch.bfloat16, torch.float32)
+                 for n in BUCKETS for hw in GN_SITES]
+        # the timed train step's batch, and the int8 whole-slide paths'
+        # (f32 GN at the config's batch)
+        cases += [(CONFIG_BATCH, 128, hw, hw, 32, True, dt)
+                  for dt in (torch.bfloat16, torch.float32)
+                  for hw in GN_SITES]
+        # off the served path: no ReLU, and planes that are not a whole
+        # number of 16-byte vectors (the plan sends them to the streaming
+        # design, with scalar accesses)
+        cases += [(32, 64, 64, 64, 16, False, torch.float32),
+                  (8, 128, 7, 7, 32, True, torch.bfloat16),
+                  (8, 128, 7, 7, 32, True, torch.float32)]
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for n, c, hw, g, relu, dt in cases:
-        shape = (n, c, hw, hw)
+    for n, c, h, w, g, relu, dt in cases:
+        shape = (n, c, h, w)
         x = (torch.randn(shape, device="cuda", generator=gen) * 2.0
              + 0.5).to(dt)
         gamma = torch.rand(c, device="cuda", generator=gen) + 0.5
@@ -440,10 +477,10 @@ def phase_kernels() -> list:
         sink = torch.empty_like(x)
         elementwise_ms = cuda_ms(lambda: sink.copy_(x))
         del sink
-        elems = n * c * hw * hw
+        elems = n * c * h * w
         nbytes = 2 * elems * x.element_size() + 2 * c * 4
         bound_ms, bound_by = _bound(nbytes, GN_OPS_PER_ELEMENT * elems)
-        dma = 4 * hw * hw * c * x.element_size() > PALLAS_VMEM_LIMIT
+        dma = 4 * h * w * c * x.element_size() > PALLAS_VMEM_LIMIT
         for plan, launch in _gn_variants(x, g, 1, sm_count):
             def call():
                 return launch(x, gamma, beta, g, 1e-5, relu, None, plan)
@@ -488,8 +525,8 @@ def phase_kernels() -> list:
                 "groups": g,
                 "relu": relu,
                 "dtype": str(dt).replace("torch.", ""),
-                "fpn_sites": GN_SITES.get(hw, 0)
-                if (c, g, relu) == (128, 32, True) else 0,
+                "fpn_sites": GN_SITES.get(h, 0)
+                if (c, h, g, relu) == (128, w, 32, True) else 0,
                 "bit_identical": same,
             })
             log(f"[kernel] {shape} {rows[-1]['dtype']} relu={relu} "
@@ -510,9 +547,50 @@ def _bound(nbytes: float, ops: float) -> tuple:
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def phase_gn_backward_kernels() -> list:
+def _gn_key(row: dict) -> tuple:
+    """A GN row's launch key: the counters' ``launches_by_variant`` key."""
+    return (row["variant"], *row["shape"], row["dtype"], row["relu"])
+
+
+def phase_gn_launched(rows: list, by_path: dict) -> list:
+    """GN rows at every key a main path launched and no row of ``rows``
+    holds (``by_path[name][path]`` the path's launches by key): a partial
+    tile batch, say, held against the plain version like the others.
+    Raises if a launched key is then still without its row."""
+    new: list = []
+    for name, phase in (("group_norm_relu", phase_kernels),
+                        ("group_norm_relu_backward",
+                         phase_gn_backward_kernels)):
+        launched = {k for counts in by_path[name].values()
+                    for k, v in counts.items() if v}
+
+        def held() -> set:
+            return {_gn_key(r) for r in rows + new if r["name"] == name}
+
+        shapes = sorted({k[1:] for k in launched - held()})
+        if shapes:
+            log(f"[kernel] {name}: rows at the paths' other keys {shapes}")
+        if any(c != 128 or not relu for _, c, _, _, _, relu in shapes):
+            raise AssertionError(f"{name}: launched at {shapes}, outside "
+                                 "FPN's GN sites (C 128, 32 groups, ReLU)")
+        if shapes and name == "group_norm_relu":
+            new += phase([(n, c, h, w, 32, True, getattr(torch, dt))
+                          for n, c, h, w, dt, _ in shapes])
+        elif shapes:
+            new += phase([(n, h, w, getattr(torch, dt))
+                          for n, _, h, w, dt, _ in shapes])
+        left = launched - held()
+        if left:
+            raise AssertionError(f"{name}: launched at keys no row holds "
+                                 f"against its plain version: {sorted(left)}")
+    return new
+
+
+def phase_gn_backward_kernels(cases: list | None = None) -> list:
     """``group_norm_relu_backward``'s designs against its plain version on
-    the forward kernel's own output and statistics."""
+    the forward kernel's own output and statistics, at ``cases``
+    ``(n, h, w, dtype)`` (C 128, 32 groups, ReLU): by default the train
+    step's batches and a few off the paths."""
     import torch.nn.functional as F
 
     from pdac_pathological_image_segmentation_tpu_torch.ops.group_norm import (
@@ -524,16 +602,18 @@ def phase_gn_backward_kernels() -> list:
     set_tf32(False)
     sm_count = torch.cuda.get_device_properties(0).multi_processor_count
     bf16, f32 = torch.bfloat16, torch.float32
-    cases = [(TRAIN_BATCH, hw, dt) for dt in (bf16, f32) for hw in GN_SITES]
-    cases += [(CONFIG_BATCH, hw, bf16) for hw in GN_SITES]
-    # a multi-split streaming apply pass, and planes of 7x7 (the plan's
-    # streaming design, scalar accesses)
-    cases += [(8, 128, bf16), (8, 128, f32), (8, 7, bf16), (8, 7, f32)]
+    if cases is None:
+        cases = [(TRAIN_BATCH, hw, hw, dt) for dt in (bf16, f32)
+                 for hw in GN_SITES]
+        cases += [(CONFIG_BATCH, hw, hw, bf16) for hw in GN_SITES]
+        # a multi-split streaming apply pass, and planes of 7x7 (the plan's
+        # streaming design, scalar accesses)
+        cases += [(8, hw, hw, dt) for hw in (128, 7) for dt in (bf16, f32)]
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(1)
     c, g = 128, 32
-    for n, hw, dt in cases:
-        shape = (n, c, hw, hw)
+    for n, h, w, dt in cases:
+        shape = (n, c, h, w)
         x = (torch.randn(shape, device="cuda", generator=gen) * 2.0
              + 0.5).to(dt)
         gamma = torch.rand(c, device="cuda", generator=gen) + 0.5
@@ -557,7 +637,7 @@ def phase_gn_backward_kernels() -> list:
         elementwise_ms = cuda_ms(
             lambda: torch.addcmul(dy, x, out, out=sink))
         del sink
-        elems = n * c * hw * hw
+        elems = n * c * h * w
         bound_ms, bound_by = _bound(4 * elems * x.element_size() + 3 * c * 4,
                                     GN_BWD_OPS_PER_ELEMENT * elems)
         for plan, launch in _gn_variants(x, g, 2, sm_count):
@@ -613,7 +693,7 @@ def phase_gn_backward_kernels() -> list:
                 "groups": g,
                 "relu": True,
                 "dtype": str(dt).replace("torch.", ""),
-                "fpn_sites": GN_SITES.get(hw, 0),
+                "fpn_sites": GN_SITES.get(h, 0) if h == w else 0,
                 "bit_identical": same,
                 "max_abs_err_dx_dgamma_dbeta": errs,
             })
@@ -3562,6 +3642,523 @@ def phase_train_options(tmp: Path, card: str, steps: dict) -> dict:
     return out
 
 
+# -- phase 12: the tools and the host data path -----------------------------
+
+N_SYNTH = 128  # 12a's patches: one batch of the config's size
+DECODE_BATCH, DECODE_EPOCHS = 32, 3
+# the trainer fed by its loader: 12a's pairs listed 6 times (6 steps of the
+# config's batch an epoch), a native warm-up epoch, then the two decoders in
+# turn
+FED_REPEAT, FED_ORDER = 6, ("native", "pil", "pil", "native")
+# bench.py --mode serve (bench.py:345-401): 32 closed-loop clients, 640 raw
+# uint8 requests, buckets 1/8/32, a 5 ms batching window
+LOAD_CLIENTS, LOAD_REQUESTS, LOAD_WAIT_MS = 32, 640, 5.0
+SWEEP_SLIDES = ((4096, 4096, 50), (3072, 5120, 51))  # (h, w, seed)
+
+
+def phase_synthetic_patches(tmp: Path) -> tuple:
+    """12a: the port's ``generate_synthetic_patches`` at the config's patch
+    size, timed; every file there.  Returns the directory and the
+    readings."""
+    from pdac_pathological_image_segmentation_tpu_torch.data.synthetic import (
+        generate_synthetic_patches,
+    )
+
+    out = tmp / "synth"
+    t0 = time.perf_counter()
+    n = generate_synthetic_patches(str(out), n=N_SYNTH, size=TILE, seed=0)
+    seconds = time.perf_counter() - t0
+    want = sorted(f"patch_{i:04d}{s}.png" for i in range(N_SYNTH)
+                  for s in ("", "-labelled"))
+    if n != (N_SYNTH, N_SYNTH) or sorted(p.name for p in out.iterdir()) \
+            != want:
+        raise AssertionError(f"generate_synthetic_patches wrote {n}")
+    mb = sum(p.stat().st_size for p in out.iterdir()) / 1e6
+    log(f"[synthetic] generate_synthetic_patches(n={N_SYNTH}, size={TILE}, "
+        f"seed=0): {2 * N_SYNTH} PNGs ({mb:.1f} MB) in {seconds:.2f} s, "
+        f"{N_SYNTH / seconds:.1f} pairs/s")
+    return out, {"seconds": seconds, "pairs_per_s": N_SYNTH / seconds}
+
+
+def phase_decoder(synth: Path, fpn_step: dict, card: str) -> dict:
+    """12b: ``PatchLoader`` over 12a's patches on the card at batch 32 with
+    the config's ``num_worker`` threads, through the native decoder and
+    through PIL's ``decode_pair``, ``DECODE_EPOCHS`` epochs each way: the
+    host decode alone (``host_batches``) and decode plus upload
+    (``epoch``, up to the card), timed; every batch bitwise equal between
+    the two ways, the native one in pinned memory, and no PNG through the
+    decoder's PIL path.  Its rates beside phase 6's FPN step at 128."""
+    import os
+
+    import yaml
+
+    from pdac_pathological_image_segmentation_tpu_torch import Config
+    from pdac_pathological_image_segmentation_tpu_torch.data import (
+        native_loader,
+    )
+    from pdac_pathological_image_segmentation_tpu_torch.data.discovery import (
+        discover_split,
+    )
+    from pdac_pathological_image_segmentation_tpu_torch.data.loader import (
+        PatchDataset,
+        PatchLoader,
+    )
+
+    workers = int(yaml.safe_load(
+        (ROOT / "configs" / "train_config.yaml").read_text())["num_worker"])
+    ds = PatchDataset(*discover_split(str(synth)),
+                      Config(model="fpn", img_size=TILE))
+    loaders = {way: PatchLoader(ds, DECODE_BATCH, shuffle=True,
+                                device="cuda", num_workers=workers)
+               for way in ("native", "pil")}
+    loaders["pil"].native_hw = None
+    if loaders["native"].native_hw != (TILE, TILE):
+        raise AssertionError(f"the loader's native_hw is "
+                             f"{loaders['native'].native_hw}")
+    pil_before = native_loader.decode_batch.pil_decodes
+    host_s = dict.fromkeys(loaders, 0.0)
+    full_s = dict.fromkeys(loaders, 0.0)
+    batches: dict = {way: [] for way in loaders}
+    pinned = []
+    for epoch in range(DECODE_EPOCHS):
+        for way, loader in loaders.items():
+            t0 = time.perf_counter()
+            for images, masks, _ in loader.host_batches(epoch):
+                if way == "native":
+                    pinned.append(images.is_pinned() and masks.is_pinned())
+            host_s[way] += time.perf_counter() - t0
+        for way, loader in loaders.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = list(loader.epoch(epoch))
+            torch.cuda.synchronize()
+            full_s[way] += time.perf_counter() - t0
+            batches[way] += got
+    pil_decodes = native_loader.decode_batch.pil_decodes - pil_before
+    if pil_decodes or not all(pinned):
+        raise AssertionError(f"the native path: {pil_decodes} PNGs through "
+                             f"PIL, pinned {pinned}")
+    n_batches = DECODE_EPOCHS * -(-N_SYNTH // DECODE_BATCH)
+    if not len(batches["native"]) == len(batches["pil"]) == n_batches:
+        raise AssertionError("the two ways gave different batch counts")
+    for k, (a, b) in enumerate(zip(batches["native"], batches["pil"])):
+        if not (a.image.is_cuda and all(torch.equal(x, y)
+                                        for x, y in zip(a, b))):
+            raise AssertionError(f"batch {k}: native and PIL decode differ")
+    del batches
+    pairs = N_SYNTH * DECODE_EPOCHS
+    cores = len(os.sched_getaffinity(0))
+    out = {"threads": workers, "host_cores": cores,
+           **{f"{w}_decode_pairs_per_s": pairs / s for w, s in host_s.items()},
+           **{f"{w}_decode_upload_pairs_per_s": pairs / s
+              for w, s in full_s.items()},
+           "fpn_step_patches_per_s": fpn_step["patches_per_s"],
+           "fpn_step_batch": fpn_step["batch"]}
+    out["native_over_step"] = (out["native_decode_upload_pairs_per_s"]
+                               / fpn_step["patches_per_s"])
+    out["pil_over_step"] = (out["pil_decode_upload_pairs_per_s"]
+                            / fpn_step["patches_per_s"])
+    log(f"[decode] {N_SYNTH} pairs of {TILE}² PNGs x {DECODE_EPOCHS} epochs "
+        f"at batch {DECODE_BATCH}, {workers} threads, {cores} host cores: "
+        f"native {out['native_decode_pairs_per_s']:.1f} pairs/s decode, "
+        f"{out['native_decode_upload_pairs_per_s']:.1f} decode + upload; PIL "
+        f"{out['pil_decode_pairs_per_s']:.1f} decode, "
+        f"{out['pil_decode_upload_pairs_per_s']:.1f} decode + upload; every "
+        f"batch bitwise equal, 0 PNGs through the decoder's PIL path; the "
+        f"FPN step at {fpn_step['batch']} eats "
+        f"{fpn_step['patches_per_s']:.1f} patches/s (phase 6): native/step "
+        f"{out['native_over_step']:.3f}, PIL/step {out['pil_over_step']:.3f},"
+        f" on {card}")
+    return out
+
+
+def phase_fed_trainer(tmp: Path, synth: Path, card: str) -> dict:
+    """12b: the trainer's own epoch (``Trainer._train_epoch``, FPN on the
+    config: batch 128, bf16, ``num_worker`` threads) fed by its
+    ``PatchLoader`` over 12a's pairs listed ``FED_REPEAT`` times, through
+    the native decoder and through PIL in turn (``FED_ORDER``, after a
+    native warm-up epoch); then the same step on one batch already on the
+    card, as many steps as an epoch has.  One run, so the decode shares
+    the host's cores with the step as it does in training."""
+    import yaml
+
+    from pdac_pathological_image_segmentation_tpu_torch import Config
+    from pdac_pathological_image_segmentation_tpu_torch.data.discovery import (
+        discover_split,
+    )
+    from pdac_pathological_image_segmentation_tpu_torch.data.loader import (
+        PatchDataset,
+    )
+    from pdac_pathological_image_segmentation_tpu_torch.train.loop import (
+        Trainer,
+    )
+    from pdac_pathological_image_segmentation_tpu_torch.train.steps import (
+        step_generator,
+    )
+    from pdac_pathological_image_segmentation_tpu_torch.utils.profiling import (
+        StepTimer,
+    )
+
+    set_tf32(False)
+    raw = yaml.safe_load((ROOT / "configs" / "train_config.yaml").read_text())
+    raw.pop("train_path"), raw.pop("val_path"), raw.pop("test_path")
+    cfg = Config.from_dict(raw)
+    imgs, masks = discover_split(str(synth))
+    ds = PatchDataset(list(imgs) * FED_REPEAT, list(masks) * FED_REPEAT,
+                      cfg)
+    trainer = Trainer(cfg, str(tmp / "fed_out"), ds, ds, device="cuda")
+    loader = trainer.train_loader
+    native_hw = loader.native_hw
+    if native_hw != (TILE, TILE):
+        raise AssertionError(f"the trainer's loader: native_hw {native_hw}")
+    pairs, steps = len(ds), len(loader)
+    seconds: dict = {"native": [], "pil": []}
+    timer = StepTimer()
+    for epoch, way in enumerate(("native",) + FED_ORDER):
+        loader.native_hw = native_hw if way == "native" else None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, score, n = trainer._train_epoch(epoch, timer)
+        elapsed = time.perf_counter() - t0
+        if n != pairs or not np.isfinite([loss, score]).all():
+            raise AssertionError(f"fed epoch {epoch} ({way}): {n} samples, "
+                                 f"loss {loss}, score {score}")
+        if epoch:  # the first is the warm-up
+            seconds[way].append(elapsed)
+    loader.native_hw = native_hw
+    batch = loader._to_device(next(loader.host_batches(0)))
+    gens = [step_generator(cfg.seed, 99, i) for i in range(steps + 2)]
+    for gen in gens[:2]:
+        trainer.train_step(*batch, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for gen in gens[2:]:
+        loss, score = trainer.train_step(*batch, gen)
+    torch.cuda.synchronize()
+    on_card_s = time.perf_counter() - t0
+    if not np.isfinite([float(loss), float(score)]).all():
+        raise AssertionError(f"on-card steps: loss {loss}, score {score}")
+    out = {"pairs_per_epoch": pairs, "steps_per_epoch": steps,
+           "batch": cfg.batch_size, "threads": cfg.num_worker,
+           "order": list(FED_ORDER),
+           **{f"{w}_epoch_s": v for w, v in seconds.items()},
+           **{f"{w}_patches_per_s": pairs * len(v) / sum(v)
+              for w, v in seconds.items()},
+           "on_card_patches_per_s": steps * cfg.batch_size / on_card_s}
+    for w in seconds:
+        out[f"{w}_over_on_card"] = (out[f"{w}_patches_per_s"]
+                                    / out["on_card_patches_per_s"])
+    log(f"[fed] the trainer's epoch, FPN at batch {cfg.batch_size} "
+        f"({steps} steps, {pairs} pairs of {TILE}² PNGs, {cfg.num_worker} "
+        f"threads), epochs {' '.join(FED_ORDER)} after a native warm-up: "
+        f"native {out['native_patches_per_s']:.1f} patches/s (epochs "
+        f"{', '.join(f'{x:.3f}' for x in seconds['native'])} s), PIL "
+        f"{out['pil_patches_per_s']:.1f} (epochs "
+        f"{', '.join(f'{x:.3f}' for x in seconds['pil'])} s); the same step "
+        f"with its batch on the card {out['on_card_patches_per_s']:.1f} "
+        f"patches/s: native/on-card {out['native_over_on_card']:.3f}, "
+        f"PIL/on-card {out['pil_over_on_card']:.3f}, on {card}")
+    return out
+
+
+def phase_extract(tmp: Path, slide_path: Path, geojson_path: Path) -> dict:
+    """12c: ``cli.extract`` on phase 9's tiled pyramidal TIFF with phase 9's
+    own GeoJSON, at downsample 1 and at ``--slide_mpp 0.25`` (downsample
+    2): the file names, every pair read back through ``PatchLoader``'s
+    native path, every label tile ``rasterize_shapes`` of the same shapes at
+    its window and, where the level is read as it is, every image tile
+    ``TiffSlide.read_region`` of its window."""
+    from pdac_pathological_image_segmentation_tpu_torch import Config
+    from pdac_pathological_image_segmentation_tpu_torch.cli import (
+        extract as cli_extract,
+    )
+    from pdac_pathological_image_segmentation_tpu_torch.data import (
+        native_loader,
+    )
+    from pdac_pathological_image_segmentation_tpu_torch.data.geojson import (
+        parse_geojson,
+        rasterize_shapes,
+    )
+    from pdac_pathological_image_segmentation_tpu_torch.data.loader import (
+        PatchDataset,
+        PatchLoader,
+    )
+    from pdac_pathological_image_segmentation_tpu_torch.data.tiffslide import (
+        TiffSlide,
+    )
+
+    shapes = parse_geojson(str(geojson_path), label_map={"Tumor": 1},
+                           default_label=None)
+    # each shape's level-0 bounding box: the gate rasterizes a window with
+    # the shapes that reach it, in their order (the others paint none of
+    # it), where the CLI takes them all
+    pts = [np.concatenate(rings)[:, :2] for _, rings in shapes]
+    boxes = np.asarray([(*q.min(0), *q.max(0)) for q in pts],
+                       np.float64).reshape(-1, 4)
+
+    def window_shapes(x: int, y: int, side: int) -> list:
+        near = ((boxes[:, 0] <= x + side) & (boxes[:, 2] >= x)
+                & (boxes[:, 1] <= y + side) & (boxes[:, 3] >= y))
+        return [shapes[k] for k in np.flatnonzero(near)]
+
+    out: dict = {}
+    with TiffSlide(str(slide_path)) as slide:
+        w0, h0 = slide.dimensions(0)
+        for argv, ds in ((["--downsample", "1"], 1.0),
+                         (["--slide_mpp", "0.25"], 2.0)):
+            dest = tmp / "extract" / f"d{ds:g}"
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                res = cli_extract.main(
+                    ["--slide", str(slide_path), "--annotations",
+                     str(geojson_path), "--out", str(dest), "--tile",
+                     str(TILE), *argv])
+            seconds = time.perf_counter() - t0
+            for line in buf.getvalue().splitlines():
+                log(f"[extract]   {line}")
+            # the QuPath exporter's names, in level-0 coordinates
+            side = int(round(TILE * ds))
+            windows = {}
+            for ey in range(0, int(h0 / ds) - TILE + 1, TILE):
+                for ex in range(0, int(w0 / ds) - TILE + 1, TILE):
+                    x, y = int(round(ex * ds)), int(round(ey * ds))
+                    windows[f"{slide_path.stem} [d={ds:g},x={x},y={y},"
+                            f"w={side},h={side}]"] = (x, y)
+            names = sorted(f"{k}{s}.png" for k in windows
+                           for s in ("", "-labelled"))
+            if res["downsample"] != ds or res["written"] != len(windows) \
+                    or sorted(p.name for p in dest.iterdir()) != names:
+                raise AssertionError(f"cli.extract {argv}: {res}")
+            level = res["level"]
+            level_ds = w0 / slide.dimensions(level)[0]
+            exact = level_ds == ds  # else the residual bilinear resize
+            ds_ = PatchDataset([str(dest / f"{k}.png") for k in windows],
+                               [str(dest / f"{k}-labelled.png")
+                                for k in windows],
+                               Config(model="fpn", img_size=TILE),
+                               pre_shuffle=False)
+            loader = PatchLoader(ds_, DECODE_BATCH, shuffle=False,
+                                 device="cuda", num_workers=8)
+            if loader.native_hw != (TILE, TILE):
+                raise AssertionError(f"extracted pairs: native_hw "
+                                     f"{loader.native_hw}")
+            pil_before = native_loader.decode_batch.pil_decodes
+            coords = list(windows.values())
+            i = labelled = 0
+            for batch in loader.epoch(0):
+                images, masks = batch.image.cpu().numpy(), batch.mask.cpu(
+                ).numpy()
+                for k in range(int(batch.valid.sum())):
+                    x, y = coords[i]
+                    want = rasterize_shapes(window_shapes(x, y, side), TILE,
+                                            TILE, scale=ds,
+                                            offset=(float(x), float(y)))
+                    if not np.array_equal(masks[k], want):
+                        raise AssertionError(f"label tile at ({x}, {y}), "
+                                             f"downsample {ds:g}")
+                    if exact and not np.array_equal(images[k],
+                                                    slide.read_region(
+                                                        level,
+                                                        int(x / level_ds),
+                                                        int(y / level_ds),
+                                                        TILE, TILE)):
+                        raise AssertionError(f"image tile at ({x}, {y}), "
+                                             f"downsample {ds:g}")
+                    labelled += bool(want.any())
+                    i += 1
+            if i != len(coords) or \
+                    native_loader.decode_batch.pil_decodes != pil_before:
+                raise AssertionError(f"read back {i} of {len(coords)} pairs")
+            how = (f"level {level} read as it is" if exact else
+                   f"level {level} (downsample {level_ds:g}) and a bilinear "
+                   "resize")
+            log(f"[extract] downsample {ds:g} ({' '.join(argv)}): "
+                f"{res['written']} pairs of {TILE}² in {seconds:.2f} s "
+                f"({res['written'] / seconds:.1f} pairs/s), from {how}; names "
+                f"as the QuPath exporter's, {labelled} with tumor; every label "
+                f"tile equal to rasterize_shapes of {len(shapes)} shapes"
+                + (", every image tile equal to read_region" if exact else "")
+                + "; read back through the loader's native path")
+            out[f"downsample_{ds:g}"] = {
+                "pairs": res["written"], "seconds": seconds, "level": level,
+                "level_read_as_is": exact, "with_tumor": labelled}
+    return out
+
+
+def phase_loadtest(tmp: Path, card: str) -> dict:
+    """12d: ``serve_and_loadtest`` at ``bench.py --mode serve``'s settings on
+    phase 4's FPN artifact (raw float32 responses, then ``;repr=u8``) and
+    phase 4b's ResUNet artifact, each a main path: the GN counters set to 0
+    before the daemon starts and read after it stops, the FPN's launches
+    7 per device forward (the daemon's batches and its warm-ups, counted
+    on the artifact's step), per shape, all cluster; ResUNet's none."""
+    import collections
+
+    from pdac_pathological_image_segmentation_tpu_torch.infer.export import (
+        load_serving_artifact,
+    )
+    from pdac_pathological_image_segmentation_tpu_torch.infer.loadtest import (
+        serve_and_loadtest,
+    )
+
+    set_tf32(False)
+    runs = (("fpn", "fpn512", "application/octet-stream"),
+            ("fpn_u8", "fpn512", "application/octet-stream;repr=u8"),
+            ("unet", "unet512", "application/octet-stream"))
+    out: dict = {"by_variant": {}}
+    for tag, name, accept in runs:
+        artifact = load_serving_artifact(str(tmp / f"{name}.pdacpt"),
+                                         device="cuda")
+        forwards: collections.Counter = collections.Counter()
+        step = artifact.step
+
+        def counted(images, step=step, forwards=forwards):
+            forwards[int(images.shape[0])] += 1
+            return step(images)
+
+        artifact.step = counted
+        # -- the main path: launches counted from here ...
+        _gn_forward_counts(reset=True)
+        res = serve_and_loadtest(
+            artifact, buckets=BUCKETS, max_wait_ms=LOAD_WAIT_MS,
+            concurrency=LOAD_CLIENTS, n_requests=LOAD_REQUESTS,
+            accept=accept)
+        counts = _gn_forward_counts()
+        # -- ... to here
+        if res["errors"] or res["requests"] != LOAD_REQUESTS or not (
+                0 < res["latency_ms_p50"] <= res["latency_ms_p90"]
+                <= res["latency_ms_p99"]):
+            raise AssertionError(f"load test {tag}: {res}")
+        # the measured batches, the warm-up client's and one per bucket
+        if sum(forwards.values()) < res["device_batches"] + len(BUCKETS) + 1:
+            raise AssertionError(f"load test {tag}: {dict(forwards)} "
+                                 f"forwards, {res['device_batches']} batches")
+        if tag.startswith("fpn"):
+            _check_forwards(f"load test {tag}", counts, dict(forwards))
+            _add_counts(out["by_variant"], counts[2])
+        elif counts[0]:
+            raise AssertionError(f"load test {tag}: {counts[0]} GN launches")
+        log(f"[loadtest] {tag}: {res['requests']} requests from "
+            f"{res['concurrency']} closed-loop clients in {res['wall_s']} s: "
+            f"{res['requests_per_s']} requests/s, p50 "
+            f"{res['latency_ms_p50']} ms, p90 {res['latency_ms_p90']} ms, p99 "
+            f"{res['latency_ms_p99']} ms; {res['device_batches']} device "
+            f"batches, mean batch {res['mean_batch_size']}, bucket occupancy "
+            f"{res['mean_bucket_occupancy']}; GN launches {counts[0]} over "
+            f"{sum(forwards.values())} forwards {dict(sorted(forwards.items()))}"
+            f"; {accept}, on {card}")
+        out[tag] = res
+    return out
+
+
+def phase_sweep(tmp: Path, cfg_path: Path, pth: Path, tiled: Path) -> dict:
+    """12e: ``run_sweep`` with phase 5's FPN ``best.pth`` on the config
+    (bf16, batch 128, stride = tile, hann, GeoJSON, ``out_dir``) over two
+    seeded numpy slides and phase 9's tiled TIFF as a ``TiffSlideSource``,
+    a main path: GN launches 7 per tile batch, all cluster; each slide's
+    files read back and its maps against a direct
+    ``SlidingWindowInference.run`` on the same source; ``sharded=True``
+    raises."""
+    import collections
+
+    from pdac_pathological_image_segmentation_tpu_torch import load_config
+    from pdac_pathological_image_segmentation_tpu_torch.data.geojson import (
+        parse_geojson,
+        rasterize_shapes,
+    )
+    from pdac_pathological_image_segmentation_tpu_torch.data.synthetic import (
+        SyntheticSlideSource,
+    )
+    from pdac_pathological_image_segmentation_tpu_torch.data.tiffslide import (
+        TiffSlide,
+        TiffSlideSource,
+    )
+    from pdac_pathological_image_segmentation_tpu_torch.infer.evaluate import (
+        load_serving_state,
+    )
+    from pdac_pathological_image_segmentation_tpu_torch.infer.sweep import (
+        run_sweep,
+    )
+    from pdac_pathological_image_segmentation_tpu_torch.infer.wsi import (
+        GridTiler,
+        SlidingWindowInference,
+    )
+
+    set_tf32(False)
+    cfg = load_config(str(cfg_path))
+    model, _ = load_serving_state(cfg, str(pth), device="cuda")
+    batch = cfg.batch_size
+    cohort = [SyntheticSlideSource(max(h, w), tile=TILE, seed=seed)
+              .read_region(0, 0, h, w) for h, w, seed in SWEEP_SLIDES]
+    out_dir = tmp / "sweep"
+    with TiffSlide(str(tiled)) as slide:
+        cohort.append(TiffSlideSource(slide, level=0, tile=TILE))
+        sources = [GridTiler(s, tile=TILE, stride=TILE)
+                   if isinstance(s, np.ndarray) else s for s in cohort]
+        forwards: collections.Counter = collections.Counter()
+        for s in sources:
+            forwards[batch] += len(s) // batch
+            if len(s) % batch:
+                forwards[len(s) % batch] += 1
+        # -- the main path: launches counted from here ...
+        _gn_forward_counts(reset=True)
+        t0 = time.perf_counter()
+        recs = run_sweep(model, cohort, tile=TILE, stride=TILE,
+                         batch_size=batch, blend="hann", geojson=True,
+                         out_dir=str(out_dir))
+        wall = time.perf_counter() - t0
+        counts = _gn_forward_counts()
+        # -- ... to here
+        _check_forwards("sweep", counts, dict(forwards))
+        rows = []
+        for rec, source in zip(recs, sources):
+            i = rec["slide"]
+            shape = tuple(source.canvas_hw)
+            prob = _check_prob_map(f"sweep slide {i}",
+                                   out_dir / f"slide_{i:04d}_prob.npy", shape,
+                                   np.float32)
+            mask = np.load(out_dir / f"slide_{i:04d}_mask.npy")
+            p, m = SlidingWindowInference(model, tile=TILE, batch_size=batch,
+                                          blend="hann").run(source)
+            d = float(np.abs(prob - p).max())
+            agree = float((mask == m).mean())
+            gj = out_dir / f"slide_{i:04d}_annotations.geojson"
+            fc = json.loads(gj.read_text())
+            back = rasterize_shapes(parse_geojson(fc), *shape)
+            if rec["n_tiles"] != len(source) or mask.shape != shape \
+                    or d > 5e-4 or agree < 0.999 \
+                    or len(fc["features"]) != rec["n_regions"] \
+                    or not np.array_equal(back.astype(bool),
+                                          mask.astype(bool)):
+                raise AssertionError(f"sweep slide {i}: {rec}, max |Δp| {d}, "
+                                     f"masks {agree}")
+            rows.append({"slide": i, "hw": shape, "windows": rec["n_tiles"],
+                         "seconds": rec["seconds"],
+                         "windows_per_s": rec["n_tiles"] / rec["seconds"],
+                         "tumor_fraction": rec["tumor_fraction"],
+                         "regions": rec["n_regions"]})
+            log(f"[sweep] slide {i} ({shape[0]}x{shape[1]}, "
+                f"{type(source).__name__}): {rec['n_tiles']} windows in "
+                f"{rec['seconds']:.2f} s ({rows[-1]['windows_per_s']:.1f} "
+                f"windows/s), tumor fraction {rec['tumor_fraction']:.6f}, "
+                f"{rec['n_regions']} GeoJSON regions rasterized back equal "
+                f"to the mask; vs a direct SlidingWindowInference.run max "
+                f"|Δp| {d:.3g}, masks {agree:.6f} equal")
+    try:
+        run_sweep(model, [], sharded=True)
+    except NotImplementedError as exc:
+        if "4.5" not in str(exc):
+            raise
+    else:
+        raise AssertionError("run_sweep(sharded=True) did not raise")
+    log(f"[sweep] {len(recs)} slides in {wall:.2f} s; GN launches "
+        f"{counts[0]} = 7 x {sum(forwards.values())} tile batches "
+        f"{dict(forwards)}, all cluster; sharded=True raises naming ROADMAP "
+        "Queue 1 item 4.5")
+    return {"slides": rows, "seconds": wall, "by_variant": counts[2]}
+
+
 def _seeded(model: str, backbone: str, seed: int) -> dict:
     from pdac_pathological_image_segmentation_tpu_torch import Config
     from pdac_pathological_image_segmentation_tpu_torch.models import (
@@ -3679,8 +4276,51 @@ def main() -> int:
         phase_class_data(tmp)
         options = phase_train_options(tmp, card, steps)
         phase_done("11 training options")
+        synth_dir, synth = phase_synthetic_patches(tmp)
+        phase_done("12a synthetic patches")
+        decode = phase_decoder(synth_dir, steps["fpn"], card)
+        phase_done("12b the decoder")
+        decode["trainer_fed"] = phase_fed_trainer(tmp, synth_dir, card)
+        phase_done("12b the trainer fed by its loader")
+        wsi_dir = tmp / "wsi"
+        extracted = phase_extract(tmp, wsi_dir / "slide_tiled.tiff",
+                                  wsi_dir / "out_jpeg" / "annotations.geojson")
+        phase_done("12c cli.extract")
+        loadtests = phase_loadtest(tmp, card)
+        phase_done("12d the load test")
+        sweep = phase_sweep(tmp, wsi_dir / "overlay.yaml",
+                            tmp / "train_fpn_out" / "pth" / "best.pth",
+                            wsi_dir / "slide_tiled.tiff")
+        phase_done("12e the sweep")
     train_runs = {"train": train, "train_unet": train_unet,
                   **{f"train_{m}": run for m, run in train_new.items()}}
+    # the GN kernels' launches on each main path, by launch key
+    gn_by_path = {
+        "group_norm_relu": {
+            "serve": serve_by_variant,
+            "serve_int8": int8_serve["gn_by_variant"],
+            "overlay_int8": int8_overlay["gn_by_variant"],
+            "serve_stain": stain["gn_by_variant"],
+            **{f"wsi_device_{t}": run["by_variant"]
+               for t, run in wsi_device.items()},
+            "train": train["gn_forward"][2],
+            "eval": evaluation["by_variant"]["fpn"],
+            "wsi": wsi,
+            f"serve_{b7_tag}": serve_b7_by_variant,
+            f"train_{b7_tag}": train_new[b7_tag]["gn_forward"][2],
+            f"eval_{b7_tag}": evaluation["by_variant"][b7_tag],
+            f"wsi_{b7_tag}": overlays[b7_tag]["by_variant"],
+            **{p: run["gn_forward"][2]
+               for p, run in options["paths"].items()},
+            "loadtest_fpn": loadtests["by_variant"],
+            "sweep": sweep["by_variant"]},
+        "group_norm_relu_backward": {
+            "train": train["gn_backward"][2],
+            f"train_{b7_tag}": train_new[b7_tag]["gn_backward"][2],
+            **{p: run["gn_backward"][2]
+               for p, run in options["paths"].items()}}}
+    kernels += phase_gn_launched(kernels, gn_by_path)
+    phase_done("3 GN rows at the paths' other keys")
     # one augmentation row per launch key takes the key's launches: the one
     # on the trainer's own draws where a key has two
     aug_rows = {}
@@ -3699,34 +4339,9 @@ def main() -> int:
                      for path, run in {**train_runs,
                                        **options["paths"]}.items()}
         else:
-            key = (row["variant"], *row["shape"], row["dtype"], row["relu"])
-            if row["name"] == "group_norm_relu":
-                paths = {"serve": serve_by_variant.get(key, 0),
-                         "serve_int8": int8_serve["gn_by_variant"].get(key, 0),
-                         "overlay_int8":
-                             int8_overlay["gn_by_variant"].get(key, 0),
-                         "serve_stain": stain["gn_by_variant"].get(key, 0),
-                         **{f"wsi_device_{t}":
-                            run["by_variant"].get(key, 0)
-                            for t, run in wsi_device.items()},
-                         "train": train["gn_forward"][2].get(key, 0),
-                         "eval": evaluation["by_variant"]["fpn"].get(key, 0),
-                         "wsi": wsi.get(key, 0),
-                         f"serve_{b7_tag}": serve_b7_by_variant.get(key, 0),
-                         f"train_{b7_tag}":
-                             train_new[b7_tag]["gn_forward"][2].get(key, 0),
-                         f"eval_{b7_tag}":
-                             evaluation["by_variant"][b7_tag].get(key, 0),
-                         f"wsi_{b7_tag}":
-                             overlays[b7_tag]["by_variant"].get(key, 0),
-                         **{p: run["gn_forward"][2].get(key, 0)
-                            for p, run in options["paths"].items()}}
-            else:
-                paths = {"train": train["gn_backward"][2].get(key, 0),
-                         f"train_{b7_tag}":
-                             train_new[b7_tag]["gn_backward"][2].get(key, 0),
-                         **{p: run["gn_backward"][2].get(key, 0)
-                            for p, run in options["paths"].items()}}
+            by_path = gn_by_path[row["name"]]
+            paths = {p: by_variant.get(_gn_key(row), 0)
+                     for p, by_variant in by_path.items()}
         row["launches"] = sum(paths.values())
         row["launches_by_path"] = paths
     int8_paths = {"serve_int8": int8_serve["by_shape"],
@@ -3777,7 +4392,8 @@ def main() -> int:
     # each kernel of the paths ran on them, and on each new path
     gn_paths = ("serve", "eval", "wsi", f"serve_{b7_tag}", f"eval_{b7_tag}",
                 f"wsi_{b7_tag}", "serve_int8", "overlay_int8", "serve_stain",
-                "wsi_device_bf16", "wsi_device_int8")
+                "wsi_device_bf16", "wsi_device_int8", "loadtest_fpn",
+                "sweep")
     fused_paths = list(train_runs) + ["train_unet++_3class_dice_ce",
                                       f"train_fpn_{B7}_remat_accum4"]
     gn_train_paths = ["train", f"train_{b7_tag}", "train_fpn_nonfused",
@@ -3815,6 +4431,12 @@ def main() -> int:
         "stain": {k: v for k, v in stain.items() if k != "gn_by_variant"},
         "train_options": {k: v for k, v in options.items() if k != "paths"},
         "seconds": time.perf_counter() - t_start}), flush=True)
+    print(json.dumps({"tools": {
+        "synthetic_patches": synth, "decode": decode, "extract": extracted,
+        "loadtest": {k: v for k, v in loadtests.items()
+                     if k != "by_variant"},
+        "sweep": {k: v for k, v in sweep.items() if k != "by_variant"}}}),
+        flush=True)
     print(json.dumps({"wsi_host": wsi_timed["summary"],
                       "wsi_40k_device": {t: r["summary"] for t, r
                                          in wsi_device.items()}}),

@@ -36,7 +36,8 @@ def resolve_device(device="cuda") -> torch.device:
 def host_to_device(t: torch.Tensor, device) -> torch.Tensor:
     """``t`` on ``device``: a CPU tensor bound for a card is pinned and
     copied without blocking (a copy from pageable memory would first wait
-    for the card's queue to drain)."""
+    for the card's queue to drain); a tensor already pinned is copied from
+    where it is (``pin_memory`` returns it as it is)."""
     device = torch.device(device)
     if device.type == "cuda" and t.device.type == "cpu":
         return t.pin_memory().to(device, non_blocking=True)

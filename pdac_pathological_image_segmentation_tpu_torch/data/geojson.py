@@ -243,9 +243,19 @@ def mask_to_polygons(mask: np.ndarray, *, min_area: float = 0.0,
     polys: List[Tuple[float, np.ndarray, List[np.ndarray]]] = [
         (a, r, []) for a, r in exts
     ]
+    # an exterior whose bounding box misses the point cannot contain it:
+    # test only the others, in the same order (the result is unchanged,
+    # and a mask of many small regions no longer costs holes × exteriors
+    # ray casts)
+    boxes = np.asarray([(r[:, 0].min(), r[:, 0].max(), r[:, 1].min(),
+                         r[:, 1].max()) for _, r in exts],
+                       np.float64).reshape(-1, 4)
     for hr in holes:
         px, py = _interior_point(hr)
-        for _, ext, hs in polys:  # smallest containing exterior first
+        near = np.flatnonzero((boxes[:, 0] <= px) & (px <= boxes[:, 1])
+                              & (boxes[:, 2] <= py) & (py <= boxes[:, 3]))
+        for k in near:  # smallest containing exterior first
+            _, ext, hs = polys[k]
             if _point_in_ring(px, py, ext):
                 hs.append(hr)
                 break

@@ -1,9 +1,13 @@
 """Host-side patch dataset and a prefetching loader (the JAX package's
 ``data/loader.py``, one process).
 
-* PNG decode on the host with PIL, on a thread pool of ``num_workers``
-  threads (the JAX package's native decoder is not ported);
-* batches go to the device as raw uint8 NHWC through pinned memory, and
+* PNG decode on the host by the native C++ decoder
+  (``data/native_loader.py``) on ``num_workers`` threads, whenever the
+  first image and its mask have the same size (as the JAX loader decides);
+  a dataset whose pairs differ in size is decoded by PIL, pair by pair, on
+  a pool of ``num_workers`` threads;
+* batches go to the device as raw uint8 NHWC through pinned memory — the
+  native decoder writes straight into pinned host tensors — and
   augmentation and normalization run on the device inside the step;
 * a background thread keeps up to ``PREFETCH`` (2) batches decoded and
   copied ahead of the consumer;
@@ -14,6 +18,7 @@
 
 from __future__ import annotations
 
+import contextlib
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -25,6 +30,7 @@ from PIL import Image
 
 from pdac_pathological_image_segmentation_tpu_torch import host_to_device
 from pdac_pathological_image_segmentation_tpu_torch.config import Config
+from pdac_pathological_image_segmentation_tpu_torch.data import native_loader
 
 PREFETCH = 2  # batches decoded and on the device ahead of the consumer
 
@@ -76,7 +82,11 @@ def epoch_indices(n: int, epoch: int, seed: int, shuffle: bool) -> np.ndarray:
 
 
 class PatchLoader:
-    """Epoch iterator of :class:`Batch` es on ``device``."""
+    """Epoch iterator of :class:`Batch` es on ``device``.
+
+    ``native_hw`` is the ``(height, width)`` the native decoder decodes
+    every pair at, from the first pair's PNG headers, or None when the first
+    image and mask differ (then PIL's :func:`decode_pair` decodes them)."""
 
     def __init__(self, dataset: PatchDataset, batch_size: int, shuffle: bool,
                  device, num_workers: int = 8) -> None:
@@ -86,16 +96,44 @@ class PatchLoader:
         self.device = torch.device(device)
         self.seed = dataset.cfg.seed
         self.num_workers = max(1, num_workers)
+        self.native_hw = None
+        if len(dataset):
+            hw_img = native_loader.png_info(str(dataset.img_paths[0]))
+            hw_mask = native_loader.png_info(str(dataset.mask_paths[0]))
+            if hw_img is not None and hw_img == hw_mask:
+                self.native_hw = hw_img
 
     def __len__(self) -> int:
         return -(-len(self.dataset) // self.batch_size)
 
-    def host_batches(self, epoch: int) -> Iterator[Tuple[np.ndarray, ...]]:
-        """``(images, masks, valid)`` numpy batches of one epoch, decoded
-        by ``num_workers`` threads."""
+    def _native_decode(self, chunk: np.ndarray) -> Tuple[torch.Tensor, ...]:
+        """One batch by the native decoder, into pinned host tensors when
+        the batch is bound for a card (the copy then starts from where it
+        was decoded; the caching host allocator holds each block until its
+        copy has run), else into plain host memory."""
+        h, w = self.native_hw
+        pin = self.device.type == "cuda"
+        images = torch.empty((len(chunk), h, w, 3), dtype=torch.uint8,
+                             pin_memory=pin)
+        masks = torch.empty((len(chunk), h, w, 1), dtype=torch.uint8,
+                            pin_memory=pin)
+        ds = self.dataset
+        native_loader.decode_batch([str(ds.img_paths[i]) for i in chunk],
+                                   h, w, 3, threads=self.num_workers,
+                                   out=images.numpy())
+        native_loader.decode_batch([str(ds.mask_paths[i]) for i in chunk],
+                                   h, w, 1, threads=self.num_workers,
+                                   out=masks.numpy())
+        return images, masks[..., 0]
+
+    def host_batches(self, epoch: int) -> Iterator[Tuple[torch.Tensor, ...]]:
+        """``(images, masks, valid)`` host tensors of one epoch."""
         idxs = epoch_indices(len(self.dataset), epoch, self.seed,
                              self.shuffle)
-        with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
+        # PIL's pool, for a dataset the native decoder does not take
+        with (ThreadPoolExecutor(max_workers=self.num_workers)
+              if self.native_hw is None
+              else contextlib.nullcontext()) as pool:
             for b in range(len(self)):
                 chunk = idxs[b * self.batch_size:(b + 1) * self.batch_size]
                 valid = np.ones(self.batch_size, dtype=bool)
@@ -105,13 +143,16 @@ class PatchLoader:
                     # from the epoch's start, cyclically: a split smaller
                     # than the batch still fills it
                     chunk = np.concatenate([chunk, np.resize(idxs, pad)])
-                pairs = list(pool.map(self.dataset.__getitem__, chunk))
-                yield (np.stack([p[0] for p in pairs]),
-                       np.stack([p[1] for p in pairs]), valid)
+                if self.native_hw is not None:
+                    images, masks = self._native_decode(chunk)
+                else:
+                    pairs = list(pool.map(self.dataset.__getitem__, chunk))
+                    images = torch.from_numpy(np.stack([p[0] for p in pairs]))
+                    masks = torch.from_numpy(np.stack([p[1] for p in pairs]))
+                yield images, masks, torch.from_numpy(valid)
 
-    def _to_device(self, host: Tuple[np.ndarray, ...]) -> Batch:
-        return Batch(*(host_to_device(torch.from_numpy(a), self.device)
-                       for a in host))
+    def _to_device(self, host: Tuple[torch.Tensor, ...]) -> Batch:
+        return Batch(*(host_to_device(t, self.device) for t in host))
 
     def epoch(self, epoch: int) -> Iterator[Batch]:
         """One epoch, decoded and copied by a background thread up to

@@ -1,18 +1,94 @@
-"""Procedural slide sources (the JAX package's ``data/synthetic.py``):
-:class:`SyntheticSlideSource`, made on the host with numpy, and
-:class:`DeviceSlideSource`, made on the device with torch.
+"""Synthetic data (the JAX package's ``data/synthetic.py``): the patch
+dataset generator :func:`generate_synthetic_patches`, and the procedural
+slide sources :class:`SyntheticSlideSource`, made on the host with numpy,
+and :class:`DeviceSlideSource`, made on the device with torch.
 
-The sources the timed whole-slide run and the band-input tests read: a
-40k×40k slide streams through the sliding-window runners without the slide
-(4.8 GB) ever existing in host RAM.
+The patches are H&E-ish PNG pairs in the reference's filesystem contract
+(``<name>.png`` + ``<name>-labelled.png``, see ``data/discovery.py``); the
+slide sources are what the timed whole-slide run and the band-input tests
+read: a 40k×40k slide streams through the sliding-window runners without
+the slide (4.8 GB) ever existing in host RAM.
 """
 
 from __future__ import annotations
 
+import os
+from concurrent.futures import ThreadPoolExecutor
+from typing import Tuple
+
 import numpy as np
 import torch
+from PIL import Image
 
 from pdac_pathological_image_segmentation_tpu_torch import resolve_device
+
+
+def _he_texture(rng: np.random.Generator, size: int) -> np.ndarray:
+    """Cheap hematoxylin/eosin-looking background: pink base + noise."""
+    base = np.array([230, 180, 200], dtype=np.float32)  # eosin pink
+    return base + rng.normal(0, 12, size=(size, size, 3)).astype(np.float32)
+
+
+# per-class tint targets: class k's blob is pulled toward _CLASS_TINTS[k-1]
+# so intensity correlates with the label (learnable by a small model)
+_CLASS_TINTS = np.array([
+    [120, 60, 160],   # hematoxylin purple (the binary "tumor" tint)
+    [60, 140, 90],    # green-ish
+    [170, 120, 40],   # ochre
+    [50, 90, 170],    # blue
+], np.float32)
+
+
+def generate_synthetic_patches(
+    out_dir: str,
+    n: int = 16,
+    size: int = 512,
+    seed: int = 0,
+    tumor_fraction: float = 0.8,
+    num_classes: int = 1,
+) -> Tuple[int, int]:
+    """Write ``n`` image/mask PNG pairs into ``out_dir``; returns
+    ``(n_images, n_masks)``.
+
+    Each tumor patch gets a random filled circle labeled 1 and tinted
+    purple (so intensity correlates with the label — learnable).  With
+    ``num_classes > 1`` each patch gets one blob per non-background class
+    (labels ``1..num_classes-1``), each with its own tint; later classes
+    overwrite earlier ones where blobs overlap, like QuPath's label order.
+
+    The random draws are the JAX generator's, in its order, so the files
+    are the same for the same arguments; the PNGs are encoded on up to 8
+    threads (PIL's encoder lets go of the interpreter lock)."""
+    os.makedirs(out_dir, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    n_blob_classes = max(1, num_classes - 1)
+
+    def write(i: int, img: np.ndarray, mask: np.ndarray) -> None:
+        Image.fromarray(img).save(os.path.join(out_dir, f"patch_{i:04d}.png"))
+        # mask stored as 0/1 labels like the QuPath LabeledImageServer export
+        Image.fromarray(mask).save(
+            os.path.join(out_dir, f"patch_{i:04d}-labelled.png"))
+
+    with ThreadPoolExecutor(max_workers=min(8, max(1, n))) as pool:
+        futures = []
+        for i in range(n):
+            img = _he_texture(rng, size)
+            mask = np.zeros((size, size), dtype=np.uint8)
+            for k in range(1, n_blob_classes + 1):
+                if num_classes == 1 and rng.random() >= tumor_fraction:
+                    continue
+                cy, cx = rng.integers(size // 4, 3 * size // 4, size=2)
+                r = int(rng.integers(size // 8, size // 3))
+                yy, xx = np.ogrid[:size, :size]
+                blob = (yy - cy) ** 2 + (xx - cx) ** 2 <= r * r
+                mask[blob] = k
+                tint = _CLASS_TINTS[(k - 1) % len(_CLASS_TINTS)]
+                img[blob] = img[blob] * 0.5 + tint * 0.5
+            img = np.clip(img, 0, 255).astype(np.uint8)
+            futures.append(pool.submit(write, i, img, mask))
+        for f in futures:
+            f.result()
+    return n, n
 
 
 class _SlideGrid:

@@ -8,12 +8,10 @@ HWC uint8 buffers.  JPEG tiles with shared tables (the SVS layout) decode in
 C++ too; only streams outside its decoder's scope
 (arithmetic/lossless/CMYK/12-bit) are decoded per tile by PIL on the host.
 
-The library is compiled with ``g++`` at first use into ``build/native/`` at
-the root of the checkout, named by a hash of the sources and the command,
-written to a temporary name and moved into place (concurrent builds never
-load a partial file).  It needs zlib's headers and library: when they are
-missing the build fails, and opening a slide raises with the compiler's
-message.  There is no Python fallback parser for whole slides.
+The library is compiled with ``g++`` at first use into ``build/native/``
+(``data/native_build.py``).  It needs zlib's headers and library: when
+they are missing the build fails, and opening a slide raises with the
+compiler's message.  There is no Python fallback parser for whole slides.
 
 ``TiffSlideSource`` adapts a slide level to the tile-source protocol of
 ``infer/wsi.py`` (``len``, ``get``, ``tile``, ``canvas_hw``, ``orig_hw``,
@@ -25,29 +23,21 @@ existing in host RAM.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import io
 import os
 import re
-import subprocess
 import threading
 from pathlib import Path
 from typing import List, Optional, Tuple
 
 import numpy as np
 
+from pdac_pathological_image_segmentation_tpu_torch.data import native_build
 from pdac_pathological_image_segmentation_tpu_torch.ops.tissue import (
     tissue_mask_np,
 )
 
-_ROOT = Path(__file__).resolve().parents[2]
-NATIVE_DIR = _ROOT / "native"
-BUILD_DIR = _ROOT / "build" / "native"
 _SOURCES = ("tiffreader.cpp", "jpegdec.cpp")
-# portable codegen (no -march=native): a cached binary must not SIGILL on a
-# host lacking the build machine's ISA
-_BUILD_CMD = ("g++", "-O3", "-std=c++17", "-fPIC", "-shared")
-_LIBS = ("-lz", "-lpthread")
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -62,31 +52,15 @@ _JPEG_TILE = 6
 
 def library_path() -> Path:
     """``build/native/libtiffreader-<hash>.so`` for the current sources."""
-    blob = b"".join((NATIVE_DIR / name).read_bytes() for name in _SOURCES)
-    digest = hashlib.sha256(
-        blob + " ".join(_BUILD_CMD + _LIBS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"libtiffreader-{digest}.so"
+    return native_build.library_path("libtiffreader", _SOURCES)
 
 
 def build() -> Path:
     """Compile the reader unless its library already exists; raises with
     the compiler's output when ``g++`` fails (for example without zlib's
     headers)."""
-    out = library_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(
-        f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [*_BUILD_CMD, "-o", str(tmp),
-           *(str(NATIVE_DIR / n) for n in _SOURCES), *_LIBS]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"building the native TIFF reader failed ({proc.returncode}; it "
-            f"needs g++ and zlib's headers):\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
-    return out
+    return native_build.build("libtiffreader", _SOURCES,
+                              "the native TIFF reader")
 
 
 def _get_lib():

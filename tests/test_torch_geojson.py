@@ -1,7 +1,9 @@
 """The PyTorch port's copy of ``data/geojson.py`` against the JAX package's,
 on seeded random masks: ``mask_to_polygons`` (with area filter, simplify,
 scale and offset), ``clean_mask``, ``parse_geojson`` and
-``rasterize_shapes`` give equal output; the round trip
+``rasterize_shapes`` give equal output, also on masks of many nested
+regions and holes (the port tests a hole only against the exteriors whose
+bounding box holds it); the round trip
 ``rasterize_shapes(mask_to_polygons(m)) == m`` is exact; the daemon's
 ``Accept: application/geo+json`` response is tested in
 ``tests/test_torch_serve.py``.
@@ -55,6 +57,24 @@ def test_mask_to_polygons_equals_jax(index, kw):
     m = _masks()[index]
     _same_polygons(gj.mask_to_polygons(m, **kw),
                    jax_gj.mask_to_polygons(m, **kw))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_many_nested_holes_equal_jax_and_round_trip(seed):
+    """Rings inside holes inside rings, and noise: every hole goes to the
+    smallest exterior that holds it, as in the JAX function."""
+    m = np.zeros((96, 96), np.uint8)
+    for k, (lo, hi) in enumerate([(2, 94), (8, 88), (14, 82), (20, 76),
+                                  (26, 70)]):
+        m[lo:hi, lo:hi] = 1 - k % 2
+    rng = np.random.default_rng(seed)
+    m[32:64, 32:64] = rng.random((32, 32)) < 0.5
+    m[80:, :] = rng.random((16, 96)) < 0.4
+    got = gj.mask_to_polygons(m)
+    _same_polygons(got, jax_gj.mask_to_polygons(m))
+    assert sum(len(hs) for _, hs in got) >= 8
+    shapes = [(1, [e] + hs) for e, hs in got]
+    np.testing.assert_array_equal(gj.rasterize_shapes(shapes, *m.shape), m)
 
 
 @pytest.mark.parametrize("index", range(5))

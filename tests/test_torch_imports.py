@@ -60,7 +60,9 @@ def test_port_modules_import_without_jax():
         "ops.stitch", "data.tiffwriter", "data.tiffslide", "data.geojson",
         "data.synthetic", "infer.wsi", "cli.overlay", "models.dropout",
         "models.deeplabv3plus", "models.pspnet", "models.unetplusplus",
-        "models.mobilenetv2", "models.efficientnet", "utils.profiling")}
+        "models.mobilenetv2", "models.efficientnet", "utils.profiling",
+        "cli.extract", "data.native_build", "data.native_loader",
+        "infer.loadtest", "infer.sweep")}
     assert expected <= set(out["imported"])
     assert [m for m in out["modules"] if _forbidden(m)] == []
 

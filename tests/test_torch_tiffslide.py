@@ -23,6 +23,7 @@ from pdac_pathological_image_segmentation_tpu.data import (
     tiffwriter as jax_tw,
 )
 from pdac_pathological_image_segmentation_tpu_torch.data import (
+    native_build,
     tiffslide as ts,
     tiffwriter as tw,
 )
@@ -177,9 +178,9 @@ def test_tile_source_equals_jax(tmp_path, rgb, level, stride, thresh):
 
 def test_library_is_built_under_build_native():
     path = ts.build()
-    assert path.parent == ts.BUILD_DIR and path.parent.name == "native"
+    assert path.parent == native_build.BUILD_DIR and path.parent.name == "native"
     assert path.parent.parent.name == "build"
     assert path.name.startswith("libtiffreader-") and path.exists()
     assert ts.library_path() == path
     with pytest.raises(IOError):
-        ts.TiffSlide(str(ts.BUILD_DIR / "no-such-slide.tiff"))
+        ts.TiffSlide(str(native_build.BUILD_DIR / "no-such-slide.tiff"))
