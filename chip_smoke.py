@@ -98,7 +98,8 @@ Phases, each of which fails the run (exit code 1) on any error:
    ``threshold_sweep.csv`` whole; then each in f32 on the card and on the
    CPU, ``test_score`` within 1e-3;
 6. one train step timed at the config's batch (128), 512², bf16, input on
-   the card, for each model (a model whose batch does not fit is cut to
+   the card, over 5 steps after 2 (8 after 3 until phase 13 took the
+   time), for each model (a model whose batch does not fit is cut to
    the largest power of two that does, said in the log): ms/step,
    patches/s, peak memory, idle share and the profiler's kernels;
 6b. DeepLabV3+'s ASPP dropout at (128, 256, 32, 32) on the card: its law,
@@ -109,7 +110,8 @@ Phases, each of which fails the run (exit code 1) on any error:
    later models (their f32 gradients round at the f32 gate's own size;
    the f32 differences are reported), DeepLabV3+ with its dropout off;
    FPN/efficientnet-b7 in f32 at 256² (the GN kernels take no f64; each
-   f32 side against the CPU's f64 step reported);
+   f32 side against the CPU's f64 step reported); the f64 steps at 256²
+   (512² until phase 13 took the time);
 8. bf16 vs f32 on the card: mask agreement at 0.5 (ResUNet with its bf16
    head);
 9. whole-slide inference, last, a main path per run: ``cli.overlay --device
@@ -120,8 +122,9 @@ Phases, each of which fails the run (exit code 1) on any error:
    artifact, and a PyHIST directory; every output read back, the tumor
    fraction against the saved map or polygons, and the GN forward
    launches 7 x the tile batches (x 8 with TTA), per shape, all cluster.
-   Then the JAX rounds' 40,960² slide (25,281 windows at stride 256,
-   hann) through ``BandedSlidingWindow`` with band input: wall seconds,
+   Then the JAX rounds' slide from the host, cut to 16,384² (3,969
+   windows at stride 256, hann; 40,960² until phase 13 took the time)
+   through ``BandedSlidingWindow`` with band input: wall seconds,
    windows/s, the device's busy share (profiler), peak memory, band
    uploads, GN launches.  Then card vs CPU in f32 on a 1024² slide with
    and without TTA (probabilities within 5e-4, masks 99.9% equal) and
@@ -178,14 +181,38 @@ Phases, each of which fails the run (exit code 1) on any error:
    closed-loop clients, 640 requests, buckets 1/8/32) on the FPN (f32 and
    u8 responses) and ResUNet artifacts, GN launches 7 per forward; 12e
    ``run_sweep`` with phase 5's FPN over two numpy slides and the tiled
-   TIFF (against direct runs, files read back, ``sharded=True`` raises).
+   TIFF (against direct runs, files read back).
+13. multi-device, each a main path: 13a two ranks on the one card over
+   gloo, named by the caller (``initialize_distributed(backend="gloo")``,
+   then ``cli.train --device cuda:0`` in each spawned rank): FPN/resnet18
+   at 512², global batch 32 (16 a rank), phase 5's data and config, 2
+   epochs, a resumed 3rd, ``gns_every: 1``; both ranks' histories equal,
+   the writer and the saver on rank 0 only, ``Diagnostics/GNS`` rows,
+   each rank's augmentation and GN launches read back from its process;
+   then the f32 step of 2 ranks against 1 rank on the same global batch
+   (augmentation and dropout on; loss, score, gradients within a multiple
+   of their f32 rounding measured in the run, weights after Adam and BN
+   buffers, ``_check_dp_step``),
+   the bf16 step of two ranks sharing the card against one rank, and
+   gloo's all_reduce of the gradient.  13b ``cli.train`` under a
+   launcher's environment joins NCCL at world size 1 (1 epoch); the bf16
+   step at 128 in that group against phase 6's, NCCL's all_reduce at
+   world 1; with 2 or more cards the f32 step over min(count, 4) cards
+   against one rank, else "NCCL across cards: skipped, 1 card".  13c ``ShardedSlidingWindow`` over ``[cuda:0]
+   * 4`` on phase 9's tiled TIFF against ``BandedSlidingWindow``: f32
+   window and band input (probabilities 2e-5, masks equal), bf16 band
+   input, rolled mode and TTA with uncertainty (masks ≥ 99.9%); sharded
+   against banded seconds; ``cli.overlay --sharded`` and ``--sharded
+   --int8``.  13d ``run_sweep(sharded=True)`` on 12e's slides against
+   12e's maps.  Every key the paths launch (a rank's batch of 16, a
+   band's 32) gets its kernel row.
 
 Each phase ends with a ``[phase] name: seconds`` line (wall time since
 the previous one).  Before the ``kernels`` line a ``{"models": ...}`` line
 sums up the new
 models' numbers (``int8`` and ``stain`` among them), a ``{"tools": ...}``
-line phase 12's and a ``{"wsi_host": ..., "wsi_40k_device": ...}`` line
-the timed slides.  The
+line phase 12's, a ``{"multi_device": ...}`` line phase 13's and a
+``{"wsi_host": ..., "wsi_40k_device": ...}`` line the timed slides.  The
 line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 package beside this file, it exits non-zero and prints no result.
@@ -197,6 +224,7 @@ import contextlib
 import functools
 import io
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -238,6 +266,11 @@ ENCODER_PATHS = (("fpn", B7), ("deeplabv3+", MNV2))
 # b7's card-vs-CPU train step (phase 7) runs at 256², a quarter of 512²'s
 # pixels, to keep its float64 and float32 runs on the CPU short
 B7_CPU_TILE = 256
+# phase 7's float64 steps (DeepLabV3+, PSPNet, UNet++, DeepLabV3+ on
+# MobileNetV2) likewise (512² until phase 13): at output stride 16 a 256²
+# tile gives DeepLabV3+'s ASPP a 16² map, on which every tap of its
+# rate-3/6/9 branches falls inside the map for the central positions
+F64_CPU_TILE = 256
 PALLAS = "pdac_pathological_image_segmentation_tpu/ops/pallas/group_norm.py"
 PALLAS_AUG = "pdac_pathological_image_segmentation_tpu/ops/pallas/fused_augment.py"
 # the Pallas DMA-ring kernel takes blocks with 4*H*W*C*itemsize > 15 MiB
@@ -774,7 +807,9 @@ def phase_augment_kernels() -> list:
 
     rows = []
     cases = [(TRAIN_BATCH, TILE, "smoke"), (CONFIG_BATCH, TILE, "smoke"),
-             (CONFIG_BATCH, TILE, "trainer"), (8, 200, "smoke")]
+             (CONFIG_BATCH, TILE, "trainer"), (8, 200, "smoke"),
+             # a data-parallel rank's rows of phase 13a's global batch
+             (TRAIN_BATCH // DP_RANKS, TILE, "trainer")]
     for n, size, which in cases:
         images = torch.from_numpy(_tiles(n, seed=20 + n, size=size)).cuda()
         masks = torch.from_numpy(_masks(n, seed=n, size=size)).cuda()
@@ -1632,6 +1667,7 @@ WSI_SIDE = 8192  # the CLI's slides
 # BASELINE.md:175 (bench.py --mode wsi --size 40960): the "~40k x 40k @ 20x"
 # slide, 25,281 windows at stride 256
 WSI_TIMED_SIDE = 40_960
+WSI_HOST_SIDE = 16_384  # the host-fed slide, cut from 40,960² (phase 13)
 WSI_STRIDE = 256
 WSI_CPU_SIDE = 1024  # card vs CPU
 
@@ -1651,11 +1687,13 @@ def _gn_forward_counts(reset: bool = False) -> tuple:
             dict(group_norm_relu.launches_by_variant))
 
 
-def _check_forwards(what: str, counts: tuple, forwards: dict) -> None:
+def _check_forwards(what: str, counts: tuple, forwards: dict,
+                    dtype: str = "bfloat16") -> None:
     """``counts`` are 7 GN launches per forward, ``forwards[n]`` forwards
-    at batch ``n`` (bf16), per shape, all through the cluster kernel."""
+    at batch ``n`` (in ``dtype``), per shape, all through the cluster
+    kernel."""
     launches, by_shape, by_variant = counts
-    want = {(n, 128, hw, hw, "bfloat16", True): k * f
+    want = {(n, 128, hw, hw, dtype, True): k * f
             for n, f in forwards.items() for hw, k in GN_SITES.items()}
     if launches != sum(want.values()) or by_shape != want:
         raise AssertionError(f"{what}: GN launches {launches} {by_shape}, "
@@ -1900,10 +1938,13 @@ def phase_wsi_cli(tmp: Path, card: str) -> dict:
 
 
 def phase_wsi_timed(tmp: Path, card: str) -> dict:
-    """The JAX rounds' whole-slide program: a 40,960² ``SyntheticSlideSource``
-    at stride 256 (25,281 windows), hann, through ``BandedSlidingWindow``
-    with band input, FPN/resnet18 bf16 from phase 5's ``best.pth``, batch
-    128.  One run, profiled for the device's busy share."""
+    """The JAX rounds' whole-slide program from the host: a
+    ``SyntheticSlideSource`` at stride 256, hann, through
+    ``BandedSlidingWindow`` with band input, FPN/resnet18 bf16 from phase
+    5's ``best.pth``, batch 128.  One run, profiled for the device's busy
+    share.  The slide is 16,384² (3,969 windows; 40,960² until phase 13
+    needed the time: the host-fed run is host-bound, and the device-made
+    40,960² slides of phase 10 keep their size)."""
     import yaml
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1925,13 +1966,13 @@ def phase_wsi_timed(tmp: Path, card: str) -> dict:
     batch = max(cfg.batch_size, 8)
     model, _ = load_serving_state(
         cfg, str(tmp / "train_fpn_out" / "pth" / "best.pth"), "cuda")
-    source = SyntheticSlideSource(WSI_TIMED_SIDE, tile=TILE,
+    source = SyntheticSlideSource(WSI_HOST_SIDE, tile=TILE,
                                   stride=WSI_STRIDE, seed=41)
     runner = BandedSlidingWindow(model, tile=TILE, batch_size=batch,
                                  blend="hann", num_workers=cfg.num_worker)
     per_band = {}
     for y, _ in source.coords:
-        b = min(y // runner.band_h, -(-WSI_TIMED_SIDE // runner.band_h) - 1)
+        b = min(y // runner.band_h, -(-WSI_HOST_SIDE // runner.band_h) - 1)
         per_band[b] = per_band.get(b, 0) + 1
     batches = sum(-(-n // batch) for n in per_band.values())
     torch.cuda.synchronize()
@@ -1945,19 +1986,19 @@ def phase_wsi_timed(tmp: Path, card: str) -> dict:
     counts = _gn_forward_counts()
     # -- ... to here
     peak = torch.cuda.max_memory_allocated()
-    _check_forwards("banded 40,960²", counts, {batch: batches})
+    _check_forwards("banded host-fed slide", counts, {batch: batches})
     events = [ev for ev in prof.key_averages()
               if ev.device_type == DeviceType.CUDA]
     copies = sum(ev.self_device_time_total for ev in events
                  if ev.key.startswith(("Memcpy", "Memset"))) / 1e6
     kernels = sum(ev.self_device_time_total for ev in events) / 1e6 - copies
     n = len(source)
-    if prob.shape != (WSI_TIMED_SIDE,) * 2 or prob.dtype != np.float16 \
+    if prob.shape != (WSI_HOST_SIDE,) * 2 or prob.dtype != np.float16 \
             or mask.shape != prob.shape:
-        raise AssertionError(f"40k maps {prob.shape} {prob.dtype}")
+        raise AssertionError(f"host-fed maps {prob.shape} {prob.dtype}")
     sample = prob[::97, ::89].astype(np.float32)
     if not np.isfinite(sample).all() or sample.min() < 0 or sample.max() > 1:
-        raise AssertionError("40k probabilities out of [0, 1]")
+        raise AssertionError("host-fed probabilities out of [0, 1]")
     stats = runner.last_run
     out = {"windows": n, "wall_s": wall, "windows_per_s": n / wall,
            "kernel_s": kernels, "copy_s": copies,
@@ -1966,7 +2007,7 @@ def phase_wsi_timed(tmp: Path, card: str) -> dict:
            "upload_s": stats["band_upload_s"], "read_s": stats["band_read_s"],
            "bands": stats["bands"], "gn_launches": counts[0],
            "batches": batches, "tumor_fraction": float(mask[::7, ::7].mean())}
-    log(f"[wsi-40k] {WSI_TIMED_SIDE}² synthetic slide, stride {WSI_STRIDE}, "
+    log(f"[wsi-host] {WSI_HOST_SIDE}² synthetic slide, stride {WSI_STRIDE}, "
         f"hann, band input, FPN/resnet18 bf16, batch {batch}: {n} windows in "
         f"{wall:.2f} s wall = {n / wall:.1f} windows/s; device kernels "
         f"{kernels:.2f} s, busy share {kernels / wall:.3f}; copies "
@@ -2076,11 +2117,12 @@ def _train_setup(cfg, sd: dict, device: str, dtype=None,
 
 def phase_timed_step(card: str, model: str = "fpn",
                      backbone: str = "resnet18", extra: dict | None = None,
-                     tag: str | None = None, iters: int = 8,
-                     warmup: int = 3) -> dict:
+                     tag: str | None = None, iters: int = 5,
+                     warmup: int = 2, profile: bool = True) -> dict:
     """One train step at the config's batch (``extra`` keys over the
-    config), timed over ``iters`` steps after ``warmup``; the augmentation
-    kernel must run once a step where the step fuses, never elsewhere."""
+    config), timed over ``iters`` steps after ``warmup``, and one more
+    profiled by kernel (``profile``); the augmentation kernel must run once
+    a step where the step fuses, never elsewhere."""
     import yaml
 
     from pdac_pathological_image_segmentation_tpu_torch import Config
@@ -2149,7 +2191,7 @@ def phase_timed_step(card: str, model: str = "fpn",
     if not (np.isfinite(float(loss)) and np.isfinite(float(score))):
         raise AssertionError(f"timed step: loss {loss}, score {score}")
     by_name = _profile_by_kernel(
-        lambda: step(images, masks, valid, gens[-1]))
+        lambda: step(images, masks, valid, gens[-1])) if profile else {}
     total = sum(by_name.values())
     groups = {
         "gn_forward": GN_FORWARD_KERNELS,
@@ -2166,17 +2208,20 @@ def phase_timed_step(card: str, model: str = "fpn",
         f"patches/s, peak memory {peak / 2 ** 30:.2f} GiB, augmentation "
         f"kernel launched {augment_launches} times in {iters} steps, on "
         f"{card}")
-    log(f"[profile] one {tag} step: profiler device time {total:.2f} ms, idle "
-        f"share {max(0.0, 1 - total / ms):.3f} of the timed step; "
-        + ", ".join(f"{g} {v:.3f} ms ({100 * v / total if total else 0:.1f}%)"
-                    for g, v in shares.items()))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
-    for k, v in top[:12]:
-        log(f"[profile]   {v:8.3f} ms  {k[:110]}")
+    if profile:
+        log(f"[profile] one {tag} step: profiler device time {total:.2f} ms, "
+            f"idle share {max(0.0, 1 - total / ms):.3f} of the timed step; "
+            + ", ".join(f"{g} {v:.3f} ms "
+                        f"({100 * v / total if total else 0:.1f}%)"
+                        for g, v in shares.items()))
+        for k, v in top[:12]:
+            log(f"[profile]   {v:8.3f} ms  {k[:110]}")
     return {"batch": n, "fused": bool(fused), "ms_per_step": ms,
             "patches_per_s": n * 1e3 / ms,
-            "peak_bytes": peak, "profile_ms": total,
-            "idle_share": max(0.0, 1 - total / ms), "shares_ms": shares,
+            "peak_bytes": peak, "profile_ms": total if profile else None,
+            "idle_share": max(0.0, 1 - total / ms) if profile else None,
+            "shares_ms": shares if profile else None,
             "top_kernels_ms": [[k[:80], v] for k, v in top[:5]]}
 
 
@@ -3178,8 +3223,10 @@ def phase_wsi_device(tmp: Path, card: str, int8: bool) -> dict:
     ``DeviceSlideSource``: the bands are made on the card and nothing is
     uploaded; FPN/resnet18 from phase 5's ``best.pth``, batch 128, bf16 or
     (``int8``) int8 calibrated on the slide's first 16 windows.  A main
-    path: the counters set to 0 just before the run and read just after;
-    profiled for the busy share."""
+    path: the counters set to 0 just before the run and read just after.
+    The bf16 run is profiled for the busy share; the int8 run is not (the
+    profile of 25,281 windows costs about 15 s of host time after the
+    run)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3218,7 +3265,8 @@ def phase_wsi_device(tmp: Path, card: str, int8: bool) -> dict:
     # -- the main path: launches counted from here ...
     _gn_forward_counts(reset=True)
     _int8_counts(reset=True)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with (contextlib.nullcontext() if int8
+          else profile(activities=[ProfilerActivity.CUDA])) as prof:
         t0 = time.perf_counter()
         prob, mask = runner.run(source)
         wall = time.perf_counter() - t0
@@ -3232,11 +3280,14 @@ def phase_wsi_device(tmp: Path, card: str, int8: bool) -> dict:
     if stats["band_upload_bytes"] or not gn[0] or bool(launches) != int8:
         raise AssertionError(f"device slide {tag}: {stats}, GN {gn[0]}, "
                              f"int8 launches {launches}")
-    events = [ev for ev in prof.key_averages()
-              if ev.device_type == DeviceType.CUDA]
-    copies = sum(ev.self_device_time_total for ev in events
-                 if ev.key.startswith(("Memcpy", "Memset"))) / 1e6
-    kernels = sum(ev.self_device_time_total for ev in events) / 1e6 - copies
+    kernels = copies = None
+    if prof is not None:
+        events = [ev for ev in prof.key_averages()
+                  if ev.device_type == DeviceType.CUDA]
+        copies = sum(ev.self_device_time_total for ev in events
+                     if ev.key.startswith(("Memcpy", "Memset"))) / 1e6
+        kernels = sum(ev.self_device_time_total
+                      for ev in events) / 1e6 - copies
     n = len(source)
     sample = prob[::97, ::89].astype(np.float32)
     if prob.shape != (WSI_TIMED_SIDE,) * 2 or not np.isfinite(sample).all() \
@@ -3244,7 +3295,8 @@ def phase_wsi_device(tmp: Path, card: str, int8: bool) -> dict:
         raise AssertionError(f"device slide {tag}: maps {prob.shape}")
     out = {"windows": n, "wall_s": wall, "windows_per_s": n / wall,
            "kernel_s": kernels, "copy_s": copies,
-           "busy_share": kernels / wall, "peak_bytes": peak,
+           "busy_share": None if kernels is None else kernels / wall,
+           "peak_bytes": peak,
            "upload_bytes": stats["band_upload_bytes"],
            "band_make_s": stats["band_upload_s"],
            "read_s": stats["band_read_s"], "bands": stats["bands"],
@@ -3252,9 +3304,10 @@ def phase_wsi_device(tmp: Path, card: str, int8: bool) -> dict:
            "tumor_fraction": float(mask[::7, ::7].mean())}
     log(f"[wsi-40k-device] {WSI_TIMED_SIDE}² DeviceSlideSource, stride "
         f"{WSI_STRIDE}, hann, FPN/resnet18 {tag}, batch {CONFIG_BATCH}: {n} "
-        f"windows in {wall:.2f} s wall = {n / wall:.1f} windows/s; device "
-        f"kernels {kernels:.2f} s, busy share {kernels / wall:.3f}; copies "
-        f"{copies:.2f} s; peak {peak / 2 ** 30:.2f} GiB; {stats['bands']} "
+        f"windows in {wall:.2f} s wall = {n / wall:.1f} windows/s; "
+        + (f"device kernels {kernels:.2f} s, busy share {kernels / wall:.3f}; "
+           f"copies {copies:.2f} s" if prof is not None else "not profiled")
+        + f"; peak {peak / 2 ** 30:.2f} GiB; {stats['bands']} "
         f"bands made on the card in {stats['band_upload_s']:.3f} s of "
         f"device time, 0 bytes uploaded; GN launches {gn[0]}, int8 "
         f"{launches}; on {card}")
@@ -3623,8 +3676,10 @@ def phase_train_options(tmp: Path, card: str, steps: dict) -> dict:
     # -- 11d: the widest encoder at the config's batch
     out["remat"] = phase_remat_equivalence()
     name = f"train_fpn_{B7}_remat_accum4"
+    # not profiled, to save host time (phase 6 profiles b7's step at 32)
     out["steps"][name] = phase_timed_step(card, "fpn", B7, REMAT_ACCUM,
-                                          tag=name, iters=2, warmup=1)
+                                          tag=name, iters=2, warmup=1,
+                                          profile=False)
     out["paths"][name] = _option_path(tmp, name, 2,
                                       batch=CONFIG_BATCH)["counts"]
     for key, base in (("train_fpn_nonfused", "fpn_fused"),
@@ -3818,7 +3873,7 @@ def phase_fed_trainer(tmp: Path, synth: Path, card: str) -> dict:
         loader.native_hw = native_hw if way == "native" else None
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        loss, score, n = trainer._train_epoch(epoch, timer)
+        loss, score, n, _ = trainer._train_epoch(epoch, timer)
         elapsed = time.perf_counter() - t0
         if n != pairs or not np.isfinite([loss, score]).all():
             raise AssertionError(f"fed epoch {epoch} ({way}): {n} samples, "
@@ -4058,8 +4113,7 @@ def phase_sweep(tmp: Path, cfg_path: Path, pth: Path, tiled: Path) -> dict:
     seeded numpy slides and phase 9's tiled TIFF as a ``TiffSlideSource``,
     a main path: GN launches 7 per tile batch, all cluster; each slide's
     files read back and its maps against a direct
-    ``SlidingWindowInference.run`` on the same source; ``sharded=True``
-    raises."""
+    ``SlidingWindowInference.run`` on the same source."""
     import collections
 
     from pdac_pathological_image_segmentation_tpu_torch import load_config
@@ -4145,17 +4199,813 @@ def phase_sweep(tmp: Path, cfg_path: Path, pth: Path, tiled: Path) -> dict:
                 f"{rec['n_regions']} GeoJSON regions rasterized back equal "
                 f"to the mask; vs a direct SlidingWindowInference.run max "
                 f"|Δp| {d:.3g}, masks {agree:.6f} equal")
-    try:
-        run_sweep(model, [], sharded=True)
-    except NotImplementedError as exc:
-        if "4.5" not in str(exc):
-            raise
-    else:
-        raise AssertionError("run_sweep(sharded=True) did not raise")
     log(f"[sweep] {len(recs)} slides in {wall:.2f} s; GN launches "
         f"{counts[0]} = 7 x {sum(forwards.values())} tile batches "
-        f"{dict(forwards)}, all cluster; sharded=True raises naming ROADMAP "
-        "Queue 1 item 4.5")
+        f"{dict(forwards)}, all cluster")
+    return {"slides": rows, "seconds": wall, "by_variant": counts[2]}
+
+
+# -- phase 13: multi-device -------------------------------------------------
+
+DP_RANKS = 2  # 13a: two gloo ranks sharing the one card
+DP_STEP_RTOL = 1e-4  # 13a's f32 step, 2 ranks vs 1 (see _check_dp_step)
+WSI_SHARDS = 4  # 13c/13d: [cuda:0] * 4
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _f32_step(world: int, rank: int, cudnn: bool = True) -> dict:
+    """One f32 FPN/resnet18 train step at 512² (TF32 off, augmentation and
+    dropout on: the non-fused chain, as f32 takes) on this rank's rows of
+    a global batch of ``TRAIN_BATCH`` tiles: the data-parallel step in a
+    group of ``world`` ranks, the one-device step with ``world`` 1; with
+    cuDNN's convolutions and BatchNorm, or with PyTorch's own (``cudnn``
+    False).  The loss, score, gradients and state after Adam, on the
+    host."""
+    from pdac_pathological_image_segmentation_tpu_torch import Config
+    from pdac_pathological_image_segmentation_tpu_torch.models import (
+        build_model,
+    )
+    from pdac_pathological_image_segmentation_tpu_torch.parallel import mesh
+    from pdac_pathological_image_segmentation_tpu_torch.parallel.batchnorm import (
+        convert_batchnorm,
+    )
+    from pdac_pathological_image_segmentation_tpu_torch.train.objective import (
+        make_objective,
+    )
+    from pdac_pathological_image_segmentation_tpu_torch.train.state import (
+        make_optimizer,
+    )
+    from pdac_pathological_image_segmentation_tpu_torch.train.steps import (
+        make_train_step,
+        step_generator,
+    )
+    from pdac_pathological_image_segmentation_tpu_torch.utils.torch_weights import (
+        seeded_state_dict,
+    )
+
+    set_tf32(False)
+    cfg = Config(model="fpn", img_size=TILE, compute_dtype="float32")
+    model = build_model(cfg)
+    model.load_state_dict(seeded_state_dict(model, seed=7), strict=True)
+    model = model.cuda()
+    parallel = world > 1
+    if parallel:
+        convert_batchnorm(model)
+    step = make_train_step(
+        model, make_optimizer(model, cfg.lr), TILE,
+        make_objective(cfg, reduce=mesh.global_sum if parallel else None))
+    n = TRAIN_BATCH // world
+    rows = slice(rank * n, (rank + 1) * n)
+    images = torch.from_numpy(_tiles(TRAIN_BATCH, seed=8)[rows]).cuda()
+    masks = torch.from_numpy(_masks(TRAIN_BATCH, seed=9)[rows]).cuda()
+    with torch.backends.cudnn.flags(enabled=cudnn, allow_tf32=False):
+        loss, score = step(images, masks,
+                           torch.ones(n, dtype=torch.bool, device="cuda"),
+                           step_generator(0, 0, 0))
+    out = {"loss": float(loss), "score": float(score),
+           "grads": {k: p.grad.detach().cpu()
+                     for k, p in model.named_parameters()
+                     if p.grad is not None},
+           "state": {k: v.detach().cpu()
+                     for k, v in model.state_dict().items()}}
+    del model, step, images, masks
+    torch.cuda.empty_cache()
+    return out
+
+
+# 13a's gradient bound: each tensor's |Δg| within this many times the f32
+# rounding measured on that tensor in the same run (the one-rank step with
+# cuDNN against the same step with PyTorch's own convolutions), plus 1e-4
+# of the largest tensor's norm.  Across FPN/resnet18's 91 gradients the
+# ratio of the two is about 1 (13a logs its largest; PERF.md has the
+# readings).
+DP_ROUNDING_FACTOR = 5.0
+
+
+def _rounding(one: dict, own: dict) -> dict:
+    """Each gradient's f32 rounding at this step: |g_cuDNN − g_own|, the
+    one-rank step with cuDNN's convolutions against PyTorch's own."""
+    return {k: float((one["grads"][k].double() - own["grads"][k].double())
+                     .norm()) for k in one["grads"]}
+
+
+def _check_dp_step(what: str, got: dict, want: dict, lr: float,
+                   rounding: dict) -> dict:
+    """An N-rank f32 step against the one-rank step on the card (TF32 off,
+    cuDNN on both sides).  The two sum in other orders (the batch split,
+    BatchNorm's global statistics as sum and sum of squares against the
+    one-device kernel, the Dice sums per rank), and the f32 backward
+    through the encoder's BatchNorms turns any reordering into gradient
+    differences of the order of the f32 rounding that ``rounding`` measures
+    per tensor.  So: the loss within 1e-4 relative, the hard score within
+    1e-4; each gradient within ``DP_ROUNDING_FACTOR`` times its measured
+    rounding plus 1e-4 of the largest norm (a gradient averaged over the
+    ranks instead of summed is off by half its norm); BN running means and
+    variances within 1e-4 relative (+1e-6); the weights after Adam within
+    2·lr everywhere (Adam's first step is ≈ lr·sign(g), and a gradient
+    within its rounding of 0 may take either sign) and within 1e-6 where
+    |g| > 1e-4."""
+    errs = {"loss": abs(got["loss"] - want["loss"]) / max(abs(want["loss"]),
+                                                          1e-12),
+            "score": abs(got["score"] - want["score"])}
+    if sorted(got["grads"]) != sorted(want["grads"]):
+        raise AssertionError(f"{what}: gradients of other parameters")
+    norms = {k: float(g.norm()) for k, g in want["grads"].items()}
+    top = max(norms.values())
+    grad_err = ratio = adam_err = bn_err = 0.0
+    worst, beyond, halved = "", [], 0
+    for k, g in want["grads"].items():
+        d = float((got["grads"][k].double() - g.double()).norm())
+        bound = DP_ROUNDING_FACTOR * rounding[k] + 1e-4 * top
+        if d > bound:
+            beyond.append(f"{k} {d:.3g} > {bound:.3g}")
+        halved += 0.5 * norms[k] > bound
+        ratio = max(ratio, d / max(rounding[k], 1e-30))
+        e = d / (norms[k] or 1.0)
+        if e > grad_err:
+            grad_err, worst = e, (f"{k} (norm {norms[k]:.3g}, its rounding "
+                                  f"{rounding[k] / (norms[k] or 1.0):.3g})")
+    for k, v in want["state"].items():
+        a, b = got["state"][k].double(), v.double()
+        if k.endswith(("running_mean", "running_var")):
+            bn_err = max(bn_err, float(((a - b).abs()
+                                        / (b.abs() * 1e-4 + 1e-6)).max()))
+        elif k in want["grads"]:
+            d = (a - b).abs()
+            clear = want["grads"][k].abs() > 1e-4
+            if float(d.max()) > 2 * lr:
+                raise AssertionError(f"{what}: {k} after Adam "
+                                     f"{float(d.max())} > 2·lr")
+            if clear.any():
+                adam_err = max(adam_err, float(d[clear].max()))
+    errs.update(grad=grad_err, grad_worst=worst, grad_to_rounding=ratio,
+                halved_caught=f"{halved}/{len(norms)}", adam=adam_err,
+                bn=bn_err)
+    if errs["loss"] > DP_STEP_RTOL or errs["score"] > 1e-4 or beyond \
+            or adam_err > 1e-6 or bn_err > 1.0:
+        raise AssertionError(f"{what}: the step against one rank {errs}; "
+                             f"gradients beyond {DP_ROUNDING_FACTOR:g}× their "
+                             f"rounding + 1e-4 of {top:.3g}: {beyond}")
+    return errs
+
+
+def _dp_rank(rank: int, world: int, backend: str, rdzv: str, cfgs: list,
+             out: str, result: str) -> None:
+    """One rank of phase 13a (gloo, ``cuda:0`` for every rank) or of the
+    NCCL step check (``cuda:rank``): joins the group, runs ``cli.train``
+    on ``cfgs`` in turn (a main path: the launch counters from 0), the f32
+    step of :func:`_f32_step`, and times the bf16 step at the rank's rows
+    and the gradient's all_reduce; writes its results to ``result``."""
+    import torch.distributed as dist
+
+    from pdac_pathological_image_segmentation_tpu_torch.cli import (
+        train as cli_train,
+    )
+    from pdac_pathological_image_segmentation_tpu_torch.parallel import mesh
+    from pdac_pathological_image_segmentation_tpu_torch.train import loop
+
+    device = "cuda:0" if backend == "gloo" else f"cuda:{rank}"
+    torch.cuda.set_device(torch.device(device))
+    mesh.initialize_distributed(backend=backend, init_method=rdzv, rank=rank,
+                                world_size=world, device=device)
+    res: dict = {"backend": dist.get_backend(), "world": mesh.world_size()}
+    try:
+        if cfgs:
+            held = []
+            real = loop.Trainer.train
+
+            def train(self):
+                try:
+                    return real(self)
+                finally:
+                    held.append((self.writer is not None,
+                                 self.saver is not None))
+
+            loop.Trainer.train = train
+            buf = io.StringIO()
+            _train_counters(reset=True)
+            with contextlib.redirect_stdout(buf):
+                runs = [cli_train.main(["--config", c, "--save_path", out,
+                                        "--device", device]) for c in cfgs]
+            res["counts"] = _train_counters()
+            loop.Trainer.train = real
+            res.update(history=sum((r["history"] for r in runs), []),
+                       held=held, printed=buf.getvalue())
+        res["step"] = _f32_step(world, rank)
+        res["timing"] = _dp_timing(world, rank)
+        torch.save(res, result)
+    finally:
+        dist.destroy_process_group()
+
+
+def _dp_timing(world: int, rank: int, iters: int = 5) -> dict:
+    """The bf16 FPN step (the config's dtype) at this rank's rows of a
+    ``TRAIN_BATCH`` batch, ms by the host clock around ``iters`` steps
+    ending in a synchronize (the ranks wait for each other in the
+    collectives), and the gradient's ``sum_gradients`` alone (ms)."""
+    from pdac_pathological_image_segmentation_tpu_torch import Config
+    from pdac_pathological_image_segmentation_tpu_torch.models import (
+        build_model,
+    )
+    from pdac_pathological_image_segmentation_tpu_torch.parallel import mesh
+    from pdac_pathological_image_segmentation_tpu_torch.parallel.batchnorm import (
+        convert_batchnorm,
+    )
+    from pdac_pathological_image_segmentation_tpu_torch.train.objective import (
+        make_objective,
+    )
+    from pdac_pathological_image_segmentation_tpu_torch.train.state import (
+        make_optimizer,
+    )
+    from pdac_pathological_image_segmentation_tpu_torch.train.steps import (
+        make_train_step,
+        step_generator,
+    )
+    from pdac_pathological_image_segmentation_tpu_torch.utils.torch_weights import (
+        seeded_state_dict,
+    )
+
+    cfg = Config(model="fpn", img_size=TILE)  # bf16
+    model = build_model(cfg)
+    model.load_state_dict(seeded_state_dict(model, seed=7), strict=True)
+    model = model.cuda()
+    parallel = world > 1
+    if parallel:
+        convert_batchnorm(model)
+    step = make_train_step(
+        model, make_optimizer(model, cfg.lr), TILE,
+        make_objective(cfg, reduce=mesh.global_sum if parallel else None))
+    n = TRAIN_BATCH // world
+    rows = slice(rank * n, (rank + 1) * n)
+    images = torch.from_numpy(_tiles(TRAIN_BATCH, seed=8)[rows]).cuda()
+    masks = torch.from_numpy(_masks(TRAIN_BATCH, seed=9)[rows]).cuda()
+    valid = torch.ones(n, dtype=torch.bool, device="cuda")
+    for i in range(2):
+        step(images, masks, valid, step_generator(0, 0, i))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(iters):
+        step(images, masks, valid, step_generator(0, 1, i))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / iters * 1e3
+    reduce_ms = None
+    if parallel:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            mesh.sum_gradients(model)
+        torch.cuda.synchronize()
+        reduce_ms = (time.perf_counter() - t0) / iters * 1e3
+    grad_mb = sum(p.numel() for p in model.parameters()) * 4 / 1e6
+    del model, step, images, masks
+    torch.cuda.empty_cache()
+    return {"batch": n, "step_ms": step_ms, "all_reduce_ms": reduce_ms,
+            "gradient_mb": grad_mb}
+
+
+def _spawn_ranks(world: int, backend: str, tmp: Path, cfgs: list,
+                 out: Path, timeout: float = 600.0) -> list:
+    """``world`` rank processes of :func:`_dp_rank` (spawned, so each
+    takes its own CUDA context); their results in rank order.  A rank that
+    fails, or outlives ``timeout``, fails the run (every process stopped)."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    rdzv = tmp / f"rdzv_{backend}_{world}"
+    rdzv.mkdir()
+    procs = [ctx.Process(target=_dp_rank, args=(
+        r, world, backend, f"file://{rdzv}/store", [str(c) for c in cfgs],
+        str(out), str(rdzv / f"rank{r}.pt"))) for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.perf_counter() + timeout
+    for p in procs:
+        p.join(max(1.0, deadline - time.perf_counter()))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    if any(codes):
+        raise AssertionError(f"{backend} ranks exited {codes}")
+    return [torch.load(rdzv / f"rank{r}.pt", weights_only=False)
+            for r in range(world)]
+
+
+def phase_data_parallel(tmp: Path, card: str) -> dict:
+    """13a: two ranks on the one card over gloo, named explicitly
+    (``initialize_distributed(backend="gloo")``, then ``cli.train --device
+    cuda:0``): FPN/resnet18 at 512², global batch 32 (16 a rank), phase
+    5's data and config, 2 epochs then a resumed 3rd, ``gns_every: 1``.
+    Both ranks' histories equal, the writer and the saver on rank 0 only,
+    ``Diagnostics/GNS`` logged, each rank's augmentation and GN launches
+    (read back from its process).  Then the f32 step of 2 ranks against 1
+    rank on the same global batch (:func:`_check_dp_step`), and the bf16
+    step's ms: 2 ranks sharing the card against 1 rank."""
+    lr = 1e-4
+    cfg2, cfg, cuts = _train_config(tmp, "fpn", 2, name="dp2", gns_every=1)
+    cfg3, _, _ = _train_config(tmp, "fpn", 3, name="dp3", gns_every=1)
+    out = tmp / "train_dp_out"
+    log(f"[dp] 13a: {DP_RANKS} ranks on {card} over gloo: cli.train "
+        f"FPN/resnet18 {cfg['compute_dtype']} at {TILE}², global batch "
+        f"{cfg['batch_size']} ({cfg['batch_size'] // DP_RANKS} a rank), "
+        "gns_every 1, 2 epochs then a resumed 3rd")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    # -- the main path (in the ranks): launches counted from 0 ...
+    ranks = _spawn_ranks(DP_RANKS, "gloo", tmp, [cfg2, cfg3], out)
+    # -- ... to the end of the ranks' cli.train runs
+    seconds = time.perf_counter() - t0
+    for r, res in enumerate(ranks):
+        for line in res["printed"].splitlines():
+            log(f"[dp]   rank {r}: {line}")
+    keys = ("epoch", "train_loss", "train_score", "val_loss", "val_score",
+            "lr", "gns")
+    hist = [[[h[k] for k in keys] for h in res["history"]] for res in ranks]
+    if any(res["backend"] != "gloo" or res["world"] != DP_RANKS
+           for res in ranks):
+        raise AssertionError(f"13a groups {[r['backend'] for r in ranks]}")
+    if [h[0] for h in hist[0]] != [0, 1, 2] or any(
+            not np.array_equal(np.asarray(h, float), np.asarray(hist[0],
+                                                                float),
+                               equal_nan=True) for h in hist[1:]):
+        raise AssertionError(f"13a: the ranks' histories differ: {hist}")
+    if ranks[0]["held"] != [(True, True)] * 2 or any(
+            r["held"] != [(False, False)] * 2 for r in ranks[1:]):
+        raise AssertionError(f"13a: writer/saver held "
+                             f"{[r['held'] for r in ranks]}")
+    if "resumed from epoch 1" not in ranks[0]["printed"] \
+            or any(r["printed"] for r in ranks[1:]):
+        raise AssertionError("13a: the chief alone prints, and it resumed")
+    rows = [line.split(",") for line in
+            (out / "log_dir" / "scalars.csv").read_text().splitlines()]
+    gns = [(int(r[0]), float(r[2])) for r in rows
+           if r[1] == "Diagnostics/GNS"]
+    finite = [h[0] + 1 for h in hist[0] if math.isfinite(h[6])]
+    if not gns or [e for e, _ in gns] != finite \
+            or not all(math.isfinite(v) for _, v in gns):
+        raise AssertionError(f"13a: Diagnostics/GNS rows {gns}")
+    for name in ("latest.pth", "best.pth"):
+        if not (out / "pth" / name).is_file():
+            raise AssertionError(f"13a: {name} was not written")
+    n = cfg["batch_size"] // DP_RANKS
+    # each rank: its ⌈N / ranks⌉ samples in batches of n
+    per_train, per_val = -(-N_TRAIN // DP_RANKS), -(-N_VAL // DP_RANKS)
+    steps, evals = 3 * -(-per_train // n), 3 * -(-per_val // n)
+    want, want_shapes = _expected_train_launches(steps, evals, n, n, True,
+                                                 True)
+    # the GNS diagnostic: one eval-mode forward and backward a measured
+    # epoch, at the rank's batch
+    for k in ("gn_forward", "gn_backward"):
+        want[k] += 3 * sum(GN_SITES.values())
+        for hw, c in GN_SITES.items():
+            key = (n, 128, hw, hw, "bfloat16", True)
+            want_shapes[k][key] = want_shapes[k].get(key, 0) + 3 * c
+    for r, res in enumerate(ranks):
+        got = {k: v[0] for k, v in res["counts"].items()}
+        if got != want or any(res["counts"][k][1] != want_shapes[k]
+                              for k in want):
+            raise AssertionError(f"13a rank {r}: launches {res['counts']}, "
+                                 f"expected {want} {want_shapes}")
+        for k in ("gn_forward", "gn_backward"):
+            _all_cluster(f"13a rank {r} {k}", res["counts"][k][2],
+                         res["counts"][k][1])
+    log(f"[dp] 13a: cli.train on {DP_RANKS} ranks in {seconds:.1f} s "
+        "(processes started and joined); histories equal on both ranks: "
+        + "; ".join(f"epoch {h[0] + 1} loss {h[1]:.4f} val {h[4]:.4f} gns "
+                    f"{h[6]:.4g}" for h in hist[0])
+        + f"; writer and saver on rank 0 only; Diagnostics/GNS rows {gns}; "
+        f"each rank's launches: augment {want['augment']} at ({n}, {TILE}), "
+        f"GN forward {want['gn_forward']}, backward {want['gn_backward']} "
+        "(the GNS diagnostic's included), all cluster")
+    # the f32 step: 2 ranks against 1 on the same global batch
+    one, own = _f32_step(1, 0), _f32_step(1, 0, cudnn=False)
+    rounding = _rounding(one, own)
+    errs = [_check_dp_step(f"13a rank {r}", res["step"], one, lr, rounding)
+            for r, res in enumerate(ranks)]
+    log(f"[dp] 13a: f32 step, {DP_RANKS} ranks against 1 rank on "
+        f"{TRAIN_BATCH} tiles, augmentation and dropout on, TF32 off, cuDNN: "
+        f"loss {ranks[0]['step']['loss']:.6f} vs {one['loss']:.6f}; worst "
+        f"over ranks: loss rel {max(e['loss'] for e in errs):.3g}, score "
+        f"{max(e['score'] for e in errs):.3g}, gradient "
+        f"{max(e['grad'] for e in errs):.3g} of its norm "
+        f"({errs[0]['grad_worst']} on rank 0), at most "
+        f"{max(e['grad_to_rounding'] for e in errs):.3g}× the tensor's f32 "
+        f"rounding (the one-rank step with cuDNN against PyTorch's own "
+        f"convolutions; bound {DP_ROUNDING_FACTOR:g}× + 1e-4 of the largest "
+        f"norm; a halved gradient would exceed it on "
+        f"{errs[0]['halved_caught']} tensors), Adam where |g| > 1e-4 "
+        f"{max(e['adam'] for e in errs):.3g}, BN running stats "
+        f"{max(e['bn'] for e in errs):.3g} of (1e-4 rel + 1e-6)")
+    single = _dp_timing(1, 0)
+    timing = [r["timing"] for r in ranks]
+    log(f"[dp] 13a: bf16 step, two ranks sharing one card (not scaling): "
+        f"{[round(t['step_ms'], 2) for t in timing]} ms a step at "
+        f"{timing[0]['batch']} rows a rank, against one rank at "
+        f"{single['batch']}: {single['step_ms']:.2f} ms; gloo all_reduce of "
+        f"the {timing[0]['gradient_mb']:.1f} MB gradient (host-staged) "
+        f"{[round(t['all_reduce_ms'], 2) for t in timing]} ms; on {card}")
+    return {"seconds": seconds, "history": hist[0], "gns_rows": gns,
+            "step_errors": errs, "dp2_step_ms": [t["step_ms"] for t in timing],
+            "one_rank_step_ms": single["step_ms"],
+            "gloo_all_reduce_ms": [t["all_reduce_ms"] for t in timing],
+            "paths": {f"train_dp_rank{r}": res["counts"]
+                      for r, res in enumerate(ranks)}}
+
+
+def _nccl_world1(cfg: str, out: str, port: int, result: str,
+                 card: str) -> None:
+    """13b's process: a launcher's environment (world 1), then
+    ``cli.train`` (which joins the group over NCCL on ``cuda:0``), then the
+    bf16 step at the config's batch and NCCL's all_reduce of the gradient
+    timed under that group."""
+    import os
+
+    import torch.distributed as dist
+
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                      WORLD_SIZE="1", RANK="0", LOCAL_RANK="0")
+    from pdac_pathological_image_segmentation_tpu_torch.cli import (
+        train as cli_train,
+    )
+    from pdac_pathological_image_segmentation_tpu_torch.parallel import mesh
+
+    buf = io.StringIO()
+    _train_counters(reset=True)
+    with contextlib.redirect_stdout(buf):
+        run = cli_train.main(["--config", cfg, "--save_path", out])
+    res = {"counts": _train_counters(), "printed": buf.getvalue(),
+           "history": run["history"], "backend": dist.get_backend(),
+           "world": mesh.world_size()}
+    step = phase_timed_step(card, tag="fpn_nccl_world1")
+    res["step_ms"] = step["ms_per_step"]
+    from pdac_pathological_image_segmentation_tpu_torch import Config
+    from pdac_pathological_image_segmentation_tpu_torch.models import (
+        build_model,
+    )
+
+    # NCCL's all_reduce of an FPN gradient (its values do not matter)
+    net = build_model(Config(model="fpn", img_size=TILE)).cuda()
+    for p in net.parameters():
+        p.grad = torch.ones_like(p)
+    mesh.sum_gradients(net)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        mesh.sum_gradients(net)
+    torch.cuda.synchronize()
+    res["all_reduce_ms"] = (time.perf_counter() - t0) / 10 * 1e3
+    torch.save(res, result)
+    dist.destroy_process_group()
+
+
+def phase_nccl(tmp: Path, card: str, step6: dict) -> dict:
+    """13b: ``cli.train`` under a launcher's environment (``WORLD_SIZE=1``,
+    ``RANK=0``, ``LOCAL_RANK=0``, a ``MASTER_PORT``) joins an NCCL group
+    of one rank on ``cuda:0`` and trains 1 epoch (a main path); in that
+    process the bf16 step at the config's batch is timed against phase 6's
+    (the same step, no group), and NCCL's all_reduce of the gradient.
+    Where the machine has 2 or more cards, the f32 step on min(count, 4)
+    cards over NCCL against one rank, as 13a's; on one card that check is
+    skipped and says so."""
+    import multiprocessing
+
+    cfg1, cfg, _ = _train_config(tmp, "fpn", 1, name="nccl1")
+    result = tmp / "nccl1.pt"
+    ctx = multiprocessing.get_context("spawn")
+    torch.cuda.empty_cache()
+    p = ctx.Process(target=_nccl_world1, args=(
+        str(cfg1), str(tmp / "train_nccl1_out"), _free_port(), str(result),
+        card))
+    t0 = time.perf_counter()
+    p.start()
+    p.join(600)
+    if p.is_alive():
+        p.kill()
+        p.join()
+    if p.exitcode:
+        raise AssertionError(f"13b: the NCCL process exited {p.exitcode}")
+    res = torch.load(result, weights_only=False)
+    seconds = time.perf_counter() - t0
+    for line in res["printed"].splitlines():
+        log(f"[nccl]   {line}")
+    steps = -(-N_TRAIN // TRAIN_BATCH)
+    evals = -(-N_VAL // TRAIN_BATCH)
+    want, want_shapes = _expected_train_launches(
+        steps, evals, TRAIN_BATCH, TRAIN_BATCH, True, True)
+    got = {k: v[0] for k, v in res["counts"].items()}
+    if res["backend"] != "nccl" or res["world"] != 1 or got != want \
+            or any(res["counts"][k][1] != want_shapes[k] for k in want) \
+            or len(res["history"]) != 1:
+        raise AssertionError(f"13b: {res['backend']} world {res['world']}, "
+                             f"launches {res['counts']}, expected {want}")
+    base = step6["ms_per_step"]
+    log(f"[nccl] 13b: cli.train under a launcher's environment joined NCCL "
+        f"at world size 1 and trained 1 epoch ({seconds:.1f} s with the "
+        f"process); the bf16 FPN step at {step6['batch']} in that group "
+        f"{res['step_ms']:.2f} ms against phase 6's {base:.2f} ms without "
+        f"one ({100 * (res['step_ms'] / base - 1):+.1f}%); NCCL all_reduce "
+        f"of the gradient at world 1 {res['all_reduce_ms']:.3f} ms; on "
+        f"{card}")
+    count = torch.cuda.device_count()
+    across = None
+    if count >= 2:
+        world = min(count, 4)
+        ranks = _spawn_ranks(world, "nccl", tmp, [], tmp / "unused")
+        one = _f32_step(1, 0)
+        rounding = _rounding(one, _f32_step(1, 0, cudnn=False))
+        across = [_check_dp_step(f"13b NCCL rank {r}", res_r["step"], one,
+                                 1e-4, rounding)
+                  for r, res_r in enumerate(ranks)]
+        log(f"[nccl] NCCL across {world} cards: the f32 step against one "
+            f"rank within 13a's bounds: {across}")
+    else:
+        log("[nccl] NCCL across cards: skipped, 1 card")
+    return {"seconds": seconds, "step_ms": res["step_ms"],
+            "phase6_step_ms": base, "all_reduce_ms": res["all_reduce_ms"],
+            "across_cards": across, "paths": {"train_nccl1": res["counts"]}}
+
+
+def _sharded_forwards(runner, source) -> int:
+    """The forwards the sharded runner takes on ``source``: each band's
+    tiles (in rolled mode each band's tiles of each roll) in batches of
+    ``batch_per_device``; a band runs only the batches it has tiles
+    for."""
+    coords = np.asarray(source.coords, np.int64).reshape(-1, 2)
+    bpd = runner.batch_per_device
+    if runner.roll_h is None:
+        _, per_band, _ = runner._plan(coords, tuple(source.canvas_hw))
+        return sum(-(-len(b) // bpd) for b in per_band)
+    d, h = runner.n_devices, source.canvas_hw[0]
+    roll_h = max(runner.roll_h, runner.tile)
+    h_own = -(-h // (d * roll_h)) * roll_h
+    owners = np.minimum(coords[:, 0] // h_own, d - 1)
+    rolls = (coords[:, 0] - owners * h_own) // roll_h
+    _, counts = np.unique(owners * (h_own // roll_h) + rolls,
+                          return_counts=True)
+    return int(sum(-(-int(c) // bpd) for c in counts))
+
+
+def phase_wsi_sharded(tmp: Path, card: str) -> dict:
+    """13c: ``ShardedSlidingWindow`` over ``[cuda:0] * 4`` (four bands, the
+    halo exchanged between them) on phase 9's 8192² tiled TIFF at stride
+    256, hann, with phase 5's FPN ``best.pth``, against
+    ``BandedSlidingWindow`` on the same source: in f32 (TF32 off) window
+    upload and band input, probabilities within 2e-5 and masks equal
+    (``tests/test_wsi_sharded.py``'s bound) but where the banded
+    probability lies within that bound of 0.5 (a knife edge: the runners
+    add the halo in another order, and 67 M pixels hold a few such); in
+    bf16 masks ≥ 99.9%; rolled
+    mode (1024-row rolls), and TTA with uncertainty at stride 512, in bf16.
+    Then ``cli.overlay --sharded`` and ``--sharded --int8`` (one card: one
+    band).  Every run is a main path: GN launches per forward by shape, all
+    cluster; the int8 and quantize kernels counted under ``--int8``."""
+    import yaml
+
+    from pdac_pathological_image_segmentation_tpu_torch import Config
+    from pdac_pathological_image_segmentation_tpu_torch.data.tiffslide import (
+        TiffSlide,
+        TiffSlideSource,
+    )
+    from pdac_pathological_image_segmentation_tpu_torch.infer.evaluate import (
+        load_serving_state,
+    )
+    from pdac_pathological_image_segmentation_tpu_torch.infer.wsi import (
+        BandedSlidingWindow,
+    )
+    from pdac_pathological_image_segmentation_tpu_torch.infer.wsi_sharded import (
+        ShardedSlidingWindow,
+    )
+
+    set_tf32(False)
+    wsi = tmp / "wsi"
+    tiled = wsi / "slide_tiled.tiff"
+    cfg_d = yaml.safe_load((wsi / "overlay.yaml").read_text())
+    pth = str(tmp / "train_fpn_out" / "pth" / "best.pth")
+    devices = [torch.device("cuda", 0)] * WSI_SHARDS
+    bpd = max(1, CONFIG_BATCH // WSI_SHARDS)
+    total: dict = {}
+    results = {}
+    with TiffSlide(str(tiled)) as slide:
+        for dtype in ("float32", "bfloat16"):
+            model, _ = load_serving_state(
+                Config.from_dict(dict(cfg_d, compute_dtype=dtype)), pth,
+                "cuda")
+            f32 = dtype == "float32"
+            cases = ([("window", {"band_input": False}, WSI_STRIDE),
+                      ("band", {"band_input": True}, WSI_STRIDE)] if f32 else
+                     [("band", {}, WSI_STRIDE),
+                      ("rolled", {"roll_h": 1024}, WSI_STRIDE),
+                      ("tta_uncertainty", {"tta": True, "uncertainty": True},
+                       2 * WSI_STRIDE)])
+            refs = {}
+            for name, kw, stride in cases:
+                source = TiffSlideSource(slide, level=0, tile=TILE,
+                                         stride=stride)
+                unc = kw.get("uncertainty", False)
+                if (stride, unc) not in refs:
+                    refs[stride, unc] = BandedSlidingWindow(
+                        model, tile=TILE, batch_size=CONFIG_BATCH,
+                        blend="hann", tta=unc,
+                        uncertainty=unc).run(source, prob_dtype=np.float32)
+                ref = refs[stride, unc]
+                runner = ShardedSlidingWindow(model, devices, tile=TILE,
+                                              batch_per_device=bpd,
+                                              blend="hann", **kw)
+                forwards = _sharded_forwards(runner, source)
+                # -- the main path: launches counted from here ...
+                _gn_forward_counts(reset=True)
+                t0 = time.perf_counter()
+                got = runner.run(source)
+                wall = time.perf_counter() - t0
+                counts = _gn_forward_counts()
+                # -- ... to here
+                tta = 8 if kw.get("tta") else 1
+                _check_forwards(f"sharded {dtype} {name}", counts,
+                                {bpd: tta * forwards}, dtype)
+                _add_counts(total, counts[2])
+                p = got[0].astype(np.float32)
+                d = float(np.abs(p - ref[0]).max())
+                differ = got[1] != ref[1]
+                agree = 1.0 - float(differ.mean())
+                # a pixel may flip only where the banded probability lies
+                # within the probability bound of 0.5 (the two runners add
+                # a band's halo in another order)
+                edge = float(np.abs(ref[0][differ] - 0.5).max()) \
+                    if differ.any() else 0.0
+                rolled = "roll_h" in kw
+                bound = 1e-3 if rolled else 2e-5
+                if p.shape != (WSI_SIDE, WSI_SIDE) or len(got) != len(ref):
+                    raise AssertionError(f"13c {name}: shapes")
+                if (f32 and (d > bound or edge > bound)) \
+                        or (not f32 and agree < 0.999):
+                    raise AssertionError(
+                        f"13c {dtype} {name}: max |Δp| {d} against the "
+                        f"banded runner, masks {agree} equal (differing "
+                        f"pixels up to {edge} from 0.5)")
+                extra = ""
+                if unc:
+                    du = float(np.abs(got[2].astype(np.float32)
+                                      - ref[2]).max())
+                    if du > 1e-3:
+                        raise AssertionError(f"13c {name}: uncertainty "
+                                             f"max |Δ| {du}")
+                    extra = f", uncertainty max |Δ| {du:.3g}"
+                results[f"{dtype}_{name}"] = {
+                    "seconds": wall, "windows": len(source),
+                    "max_abs_dp": d, "mask_agreement": agree}
+                log(f"[wsi-sharded] 13c {dtype} {name}: {len(source)} "
+                    f"windows (stride {stride}) over {WSI_SHARDS} bands of "
+                    f"cuda:0 in {wall:.2f} s; against BandedSlidingWindow "
+                    f"max |Δp| {d:.3g}, masks {agree:.9f} equal "
+                    f"({int(differ.sum())} pixels differ, each within "
+                    f"{edge:.3g} of 0.5){extra}; GN "
+                    f"launches {counts[0]} = 7 x {tta * forwards} forwards "
+                    f"at batch {bpd}, all cluster")
+            del model, refs
+            torch.cuda.empty_cache()
+    # banded against sharded seconds, bf16 band input, one slide
+    source_n = _windows(WSI_SIDE, WSI_STRIDE) ** 2
+    model, _ = load_serving_state(Config.from_dict(cfg_d), pth, "cuda")
+    with TiffSlide(str(tiled)) as slide:
+        source = TiffSlideSource(slide, level=0, tile=TILE, stride=WSI_STRIDE)
+        t0 = time.perf_counter()
+        BandedSlidingWindow(model, tile=TILE, batch_size=CONFIG_BATCH,
+                            blend="hann").run(source)
+        banded_s = time.perf_counter() - t0
+    del model
+    torch.cuda.empty_cache()
+    log(f"[wsi-sharded] 13c: {source_n} windows bf16 band input: sharded "
+        f"(4 bands of one card) {results['bfloat16_band']['seconds']:.2f} s "
+        f"against banded {banded_s:.2f} s; on {card}")
+    # cli.overlay --sharded and --sharded --int8
+    overlays = {}
+    int8 = {}
+    base = ["--config", str(wsi / "overlay.yaml"), "--device", "cuda",
+            "--pth_path", pth, "--slide", str(tiled), "--stride",
+            str(WSI_STRIDE), "--blend", "hann", "--sharded"]
+    banded = np.load(wsi / "out_tiled" / "probability_map.npy")
+    for name, extra in (("sharded", []), ("sharded_int8", ["--int8"])):
+        out = wsi / f"out_{name}"
+        # -- the main path: launches counted from here ...
+        _int8_counts(reset=True)
+        _gn_forward_counts(reset=True)
+        result, _, frac = _run_cli_overlay(base + extra + ["--save_path",
+                                                           str(out)])
+        launches, by_shape = _int8_counts()
+        quantize_by_shape = _quantize_counts()
+        counts = _gn_forward_counts()
+        # -- ... to here
+        prob = _check_prob_map(name, out / "probability_map.npy",
+                               (WSI_SIDE, WSI_SIDE), np.float32)
+        if result["n_tiles"] != source_n or not counts[0] \
+                or bool(launches) != bool(extra) \
+                or abs(frac - result["tumor_fraction"]) > 5e-5:
+            raise AssertionError(f"13c cli.overlay --{name}: {result}, GN "
+                                 f"{counts[0]}, int8 {launches}")
+        _all_cluster(f"cli.overlay --{name}", counts[2], counts[1])
+        # phase 9's tiled run took TTA; the plain maps agree by the mask
+        agree = float(((prob >= 0.5) == (banded >= 0.5)).mean())
+        overlays[name] = {"seconds": result["seconds"],
+                          "tumor_fraction": result["tumor_fraction"],
+                          "by_variant": counts[2]}
+        if extra:
+            int8 = {"by_shape": by_shape,
+                    "quantize_by_shape": quantize_by_shape}
+        else:
+            _add_counts(total, counts[2])
+        log(f"[wsi-sharded] 13c cli.overlay --{name.replace('_', ' --')}: "
+            f"{result['n_tiles']} windows in {result['seconds']:.1f} s, "
+            f"tumor fraction {result['tumor_fraction']:.6f}; masks "
+            f"{agree:.4f} equal to phase 9's banded TTA map; GN launches "
+            f"{counts[0]}, all cluster; int8 launches {launches}, quantize "
+            f"{sum(quantize_by_shape.values())}")
+    return {"runs": results, "banded_s": banded_s, "by_variant": total,
+            "overlays": {k: {f: v for f, v in o.items() if f != "by_variant"}
+                         for k, o in overlays.items()},
+            "int8": int8,
+            "int8_gn_by_variant": overlays["sharded_int8"]["by_variant"]}
+
+
+def phase_sweep_sharded(tmp: Path, cfg_path: Path, pth: Path,
+                        tiled: Path) -> dict:
+    """13d: ``run_sweep(sharded=True, mesh=[cuda:0] * 4)`` with 12e's model,
+    slides and settings (bf16, batch 128 → 32 a band), against 12e's
+    one-device maps in ``tmp / sweep``: masks ≥ 99.9% equal (bf16 at
+    another batch), the records equal; a main path (GN launches per
+    forward, all cluster)."""
+    from pdac_pathological_image_segmentation_tpu_torch import load_config
+    from pdac_pathological_image_segmentation_tpu_torch.data.synthetic import (
+        SyntheticSlideSource,
+    )
+    from pdac_pathological_image_segmentation_tpu_torch.data.tiffslide import (
+        TiffSlide,
+        TiffSlideSource,
+    )
+    from pdac_pathological_image_segmentation_tpu_torch.infer.evaluate import (
+        load_serving_state,
+    )
+    from pdac_pathological_image_segmentation_tpu_torch.infer.sweep import (
+        run_sweep,
+    )
+    from pdac_pathological_image_segmentation_tpu_torch.infer.wsi import (
+        GridTiler,
+    )
+    from pdac_pathological_image_segmentation_tpu_torch.infer.wsi_sharded import (
+        ShardedSlidingWindow,
+    )
+
+    set_tf32(False)
+    cfg = load_config(str(cfg_path))
+    model, _ = load_serving_state(cfg, str(pth), device="cuda")
+    devices = [torch.device("cuda", 0)] * WSI_SHARDS
+    bpd = max(1, cfg.batch_size // WSI_SHARDS)
+    cohort = [SyntheticSlideSource(max(h, w), tile=TILE, seed=seed)
+              .read_region(0, 0, h, w) for h, w, seed in SWEEP_SLIDES]
+    with TiffSlide(str(tiled)) as slide:
+        cohort.append(TiffSlideSource(slide, level=0, tile=TILE))
+        probe = ShardedSlidingWindow(model, devices, tile=TILE,
+                                     batch_per_device=bpd)
+        forwards = sum(_sharded_forwards(
+            probe, GridTiler(s, tile=TILE, stride=TILE)
+            if isinstance(s, np.ndarray) else s) for s in cohort)
+        # -- the main path: launches counted from here ...
+        _gn_forward_counts(reset=True)
+        t0 = time.perf_counter()
+        recs = run_sweep(model, cohort, mesh=devices, tile=TILE, stride=TILE,
+                         batch_size=cfg.batch_size, blend="hann",
+                         sharded=True)
+        wall = time.perf_counter() - t0
+        counts = _gn_forward_counts()
+        # -- ... to here
+    _check_forwards("sharded sweep", counts, {bpd: forwards})
+    rows = []
+    for rec in recs:
+        i = rec["slide"]
+        prob = np.load(tmp / "sweep" / f"slide_{i:04d}_prob.npy")
+        mask = np.load(tmp / "sweep" / f"slide_{i:04d}_mask.npy")
+        d = np.abs(rec["prob"] - prob)
+        agree = float((rec["mask"] == mask).mean())
+        if rec["prob"].shape != prob.shape or agree < 0.999:
+            raise AssertionError(f"13d slide {i}: masks {agree} equal to "
+                                 "12e's")
+        rows.append({"slide": i, "seconds": rec["seconds"],
+                     "windows": rec["n_tiles"], "max_abs_dp": float(d.max()),
+                     "mean_abs_dp": float(d.mean()), "mask_agreement": agree})
+        log(f"[sweep] 13d slide {i}: sharded over {WSI_SHARDS} bands "
+            f"{rec['n_tiles']} windows in {rec['seconds']:.2f} s; against "
+            f"12e's one-device map max |Δp| {float(d.max()):.3g} (mean "
+            f"{float(d.mean()):.3g}), masks {agree:.6f} equal")
+    log(f"[sweep] 13d: run_sweep(sharded=True) {len(recs)} slides in "
+        f"{wall:.2f} s; GN launches {counts[0]} = 7 x {forwards} forwards at "
+        f"batch {bpd}, all cluster")
     return {"slides": rows, "seconds": wall, "by_variant": counts[2]}
 
 
@@ -4230,11 +5080,13 @@ def main() -> int:
         dropout = phase_aspp_dropout()
         phase_done("6b ASPP dropout")
         for m in MODELS:
-            phase_train_card_vs_cpu(m)
-        log(f"[card-vs-cpu] {b7_tag}: the train step at {B7_CPU_TILE}², cut "
-            f"from {TILE}² to keep its CPU runs short")
+            phase_train_card_vs_cpu(m, size=TILE if m in ("fpn", "unet")
+                                    else F64_CPU_TILE)
+        log(f"[card-vs-cpu] {b7_tag}: the train step at {B7_CPU_TILE}², and "
+            f"the float64 steps at {F64_CPU_TILE}², cut from {TILE}² to keep "
+            "their CPU runs short")
         phase_train_card_vs_cpu("fpn", B7, B7_CPU_TILE)
-        phase_train_card_vs_cpu("deeplabv3+", MNV2)
+        phase_train_card_vs_cpu("deeplabv3+", MNV2, F64_CPU_TILE)
         phase_done("7 train step card vs CPU")
         sds = {"fpn": sd, "unet": unet["sd"],
                **{m: served[m]["sd"] for m in NEW_MODELS + tuple(enc_tags)}}
@@ -4259,7 +5111,7 @@ def main() -> int:
         phase_done("9b cli.overlay, other models")
         wsi_timed = phase_wsi_timed(tmp, card)
         _add_counts(wsi, wsi_timed["by_variant"])
-        phase_done("9 the 40,960² slide from the host")
+        phase_done("9 the 16,384² slide from the host")
         phase_wsi_card_vs_cpu(tmp)
         phase_done("9 slides card vs CPU")
         int8_serve = phase_int8_serving(tmp, card)
@@ -4292,6 +5144,19 @@ def main() -> int:
                             tmp / "train_fpn_out" / "pth" / "best.pth",
                             wsi_dir / "slide_tiled.tiff")
         phase_done("12e the sweep")
+        dp = phase_data_parallel(tmp, card)
+        phase_done("13a two ranks on one card over gloo")
+        nccl = phase_nccl(tmp, card, steps["fpn"])
+        phase_done("13b NCCL under a launcher")
+        wsi_sharded = phase_wsi_sharded(tmp, card)
+        phase_done("13c sharded whole-slide inference")
+        sweep_sharded = phase_sweep_sharded(
+            tmp, wsi_dir / "overlay.yaml",
+            tmp / "train_fpn_out" / "pth" / "best.pth",
+            wsi_dir / "slide_tiled.tiff")
+        phase_done("13d the sharded sweep")
+    # the multi-device training paths: each rank's launches, by kernel
+    dp_paths = {**dp["paths"], **nccl["paths"]}
     train_runs = {"train": train, "train_unet": train_unet,
                   **{f"train_{m}": run for m, run in train_new.items()}}
     # the GN kernels' launches on each main path, by launch key
@@ -4313,12 +5178,17 @@ def main() -> int:
             **{p: run["gn_forward"][2]
                for p, run in options["paths"].items()},
             "loadtest_fpn": loadtests["by_variant"],
-            "sweep": sweep["by_variant"]},
+            "sweep": sweep["by_variant"],
+            **{p: run["gn_forward"][2] for p, run in dp_paths.items()},
+            "wsi_sharded": wsi_sharded["by_variant"],
+            "overlay_sharded_int8": wsi_sharded["int8_gn_by_variant"],
+            "sweep_sharded": sweep_sharded["by_variant"]},
         "group_norm_relu_backward": {
             "train": train["gn_backward"][2],
             f"train_{b7_tag}": train_new[b7_tag]["gn_backward"][2],
             **{p: run["gn_backward"][2]
-               for p, run in options["paths"].items()}}}
+               for p, run in options["paths"].items()},
+            **{p: run["gn_backward"][2] for p, run in dp_paths.items()}}}
     kernels += phase_gn_launched(kernels, gn_by_path)
     phase_done("3 GN rows at the paths' other keys")
     # one augmentation row per launch key takes the key's launches: the one
@@ -4329,6 +5199,13 @@ def main() -> int:
             key = (row["shape"][0], row["shape"][1])
             if key not in aug_rows or row["tables"] == "trainer":
                 aug_rows[key] = row
+    aug_paths = {**train_runs, **options["paths"], **dp_paths}
+    unheld = {k for run in aug_paths.values()
+              for k, v in run["augment"][1].items() if v} - set(aug_rows)
+    if unheld:
+        raise AssertionError(f"fused_train_transform launched at keys no "
+                             f"row holds against its plain version: "
+                             f"{sorted(unheld)}")
     for row in kernels:
         # launches on the main paths, by variant and shape: 0 for rows off
         # them
@@ -4336,8 +5213,7 @@ def main() -> int:
             key = (row["shape"][0], row["shape"][1])
             paths = {path: run["augment"][1].get(key, 0)
                      if aug_rows[key] is row else 0
-                     for path, run in {**train_runs,
-                                       **options["paths"]}.items()}
+                     for path, run in aug_paths.items()}
         else:
             by_path = gn_by_path[row["name"]]
             paths = {p: by_variant.get(_gn_key(row), 0)
@@ -4346,6 +5222,7 @@ def main() -> int:
         row["launches_by_path"] = paths
     int8_paths = {"serve_int8": int8_serve["by_shape"],
                   "overlay_int8": int8_overlay["by_shape"],
+                  "overlay_sharded_int8": wsi_sharded["int8"]["by_shape"],
                   "wsi_device_int8": wsi_device["int8"]["by_shape"],
                   **{f"{m}_int8": r["by_shape"]
                      for m, r in int8_models.items()}}
@@ -4358,6 +5235,7 @@ def main() -> int:
     quantize_rows = phase_quantize_rows(
         {"serve_int8": int8_serve["quantize_by_shape"],
          "overlay_int8": int8_overlay["quantize_by_shape"],
+         "overlay_sharded_int8": wsi_sharded["int8"]["quantize_by_shape"],
          "wsi_device_int8": wsi_device["int8"]["quantize_by_shape"],
          **{f"{m}_int8": r["quantize_by_shape"]
             for m, r in int8_models.items()}})
@@ -4393,11 +5271,14 @@ def main() -> int:
     gn_paths = ("serve", "eval", "wsi", f"serve_{b7_tag}", f"eval_{b7_tag}",
                 f"wsi_{b7_tag}", "serve_int8", "overlay_int8", "serve_stain",
                 "wsi_device_bf16", "wsi_device_int8", "loadtest_fpn",
-                "sweep")
+                "sweep", "wsi_sharded", "overlay_sharded_int8",
+                "sweep_sharded")
     fused_paths = list(train_runs) + ["train_unet++_3class_dice_ce",
-                                      f"train_fpn_{B7}_remat_accum4"]
+                                      f"train_fpn_{B7}_remat_accum4",
+                                      *dp_paths]
     gn_train_paths = ["train", f"train_{b7_tag}", "train_fpn_nonfused",
-                      "train_fpn_parity", f"train_fpn_{B7}_remat_accum4"]
+                      "train_fpn_parity", f"train_fpn_{B7}_remat_accum4",
+                      *dp_paths]
     for name, path in ([("fused_train_transform", p) for p in fused_paths]
                        + [("group_norm_relu", p) for p in gn_paths]
                        + [(k, p) for p in gn_train_paths
@@ -4437,6 +5318,13 @@ def main() -> int:
                      if k != "by_variant"},
         "sweep": {k: v for k, v in sweep.items() if k != "by_variant"}}}),
         flush=True)
+    print(json.dumps({"multi_device": {
+        "data_parallel": {k: v for k, v in dp.items() if k != "paths"},
+        "nccl": {k: v for k, v in nccl.items() if k != "paths"},
+        "wsi_sharded": {k: v for k, v in wsi_sharded.items()
+                        if k in ("runs", "banded_s", "overlays")},
+        "sweep_sharded": {k: v for k, v in sweep_sharded.items()
+                          if k != "by_variant"}}}), flush=True)
     print(json.dumps({"wsi_host": wsi_timed["summary"],
                       "wsi_40k_device": {t: r["summary"] for t, r
                                          in wsi_device.items()}}),

@@ -16,8 +16,12 @@ thumbnail) and, on request, ``uncertainty_map.npy``,
 ``--device cpu`` is passed.  ``--int8`` serves the checkpoint's model on
 the int8 path (``infer/quantized.py``; unet/fpn/deeplabv3+/pspnet on
 resnet18), calibrated on the first 16 tiles that pass the tissue filter;
-it composes with ``--banded`` and ``--tta``.  ``--sharded`` is not ported
-yet and raises, naming ROADMAP.md.
+it composes with ``--banded``, ``--sharded`` and ``--tta``.  ``--sharded``
+stitches in bands over ``create_mesh(num_devices)`` (every visible card by
+default; ``[cpu] * num_devices`` under ``--device cpu``) with the halo
+exchanged between bands (``infer/wsi_sharded.py``); with ``--band_h`` it
+takes rolled mode.  As in the JAX CLI, ``--sharded`` refuses ``--artifact``
+and ``--banded``.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import argparse
 import os
 
 import numpy as np
+import torch
 
 from pdac_pathological_image_segmentation_tpu_torch import (
     load_config,
@@ -37,13 +42,6 @@ from pdac_pathological_image_segmentation_tpu_torch.infer.wsi import (
     SlidingWindowInference,
     overlay_figure,
 )
-
-NOT_PORTED = {
-    "--sharded": "--sharded (multi-device banded stitching, "
-                 "infer/wsi_sharded.py) is not ported yet (ROADMAP.md Queue "
-                 "1, item 4: Multi-device)",
-}
-
 
 def _load_thumbnail(path: str, max_dim: int = 2048) -> np.ndarray | None:
     """A slide rendering at most ``max_dim`` wide: the coarsest pyramid
@@ -79,6 +77,17 @@ def _load_thumbnail(path: str, max_dim: int = 2048) -> np.ndarray | None:
         return None
 
 
+def _to_device(obj, device):
+    """A state dict or an int8 bundle with every tensor on ``device``."""
+    if torch.is_tensor(obj):
+        return obj.to(device)
+    if isinstance(obj, dict):
+        return {k: _to_device(v, device) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_device(v, device) for v in obj)
+    return obj
+
+
 def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(description="pathology_project overlay")
     parser.add_argument("--config", type=str, required=True)
@@ -101,8 +110,10 @@ def main(argv=None) -> dict:
                         help="overlap blend window (PyHIST tiles don't "
                         "overlap → uniform reproduces the reference paste)")
     parser.add_argument("--sharded", action="store_true",
-                        help="multi-device banded stitching (not ported "
-                        "yet; raises)")
+                        help="band-sharded stitching over the config's "
+                        "num_devices (every visible card by default), the "
+                        "halo exchanged between bands; with --band_h, "
+                        "rolled bands")
     parser.add_argument("--banded", action="store_true",
                         help="O(band)-memory runner for slides whose canvas "
                         "exceeds device memory; uploads each band's pixels "
@@ -110,7 +121,8 @@ def main(argv=None) -> dict:
                         "the source supports region reads (--slide does)")
     parser.add_argument("--band_h", type=int, default=None,
                         help="band height in rows for --banded "
-                        "(default 4096)")
+                        "(default 4096); with --sharded, rolled mode with "
+                        "this roll height")
     parser.add_argument("--slide", default=None,
                         help="run directly on a pyramidal TIFF/SVS slide "
                         "(native tiled reader, streaming O(tile) host "
@@ -160,8 +172,6 @@ def main(argv=None) -> dict:
                         help="cuda (default) or cpu")
     args = parser.parse_args(argv)
 
-    if args.sharded:
-        raise NotImplementedError(NOT_PORTED["--sharded"])
     device = resolve_device(args.device)
     cfg = load_config(args.config)
     os.makedirs(args.save_path, exist_ok=True)
@@ -171,7 +181,8 @@ def main(argv=None) -> dict:
         # multi-class slides stitch per-class softmax canvases and the mask
         # is the argmax class map — surfaces that assume one sigmoid canvas
         # are rejected up front (SlidingWindowInference carries the C axis)
-        for flag, name in ((args.banded, "--banded"),
+        for flag, name in ((args.sharded, "--sharded"),
+                           (args.banded, "--banded"),
                            (args.artifact, "--artifact"),
                            (args.export_tiff, "--export_tiff")):
             if flag:
@@ -180,6 +191,13 @@ def main(argv=None) -> dict:
         if args.threshold != "0.5":
             raise SystemExit("--threshold applies to binary sigmoid masks; "
                              "multi-class masks are the per-pixel argmax")
+    if args.artifact and args.sharded:
+        raise SystemExit("--artifact does not compose with --sharded "
+                         "(the sharded runner builds its step per device); "
+                         "use --banded")
+    if args.sharded and args.banded:
+        raise SystemExit("--sharded and --banded are mutually exclusive "
+                         "(the sharded runner is already banded per device)")
     if not args.artifact and not args.pth_path:
         raise SystemExit("one of --pth_path or --artifact is required")
     if args.int8 and args.artifact:
@@ -284,6 +302,18 @@ def main(argv=None) -> dict:
         bundle, forward = q.quantize_from_config(cfg, sd, [calib])
         infer_step = q.make_quantized_infer_step(sd, bundle, cfg.img_size,
                                                  forward=forward)
+    devices = None
+    if args.sharded:
+        from pdac_pathological_image_segmentation_tpu_torch.parallel.mesh import (
+            create_mesh,
+        )
+
+        devices = create_mesh(cfg.num_devices, device=device)
+        if args.int8:
+            # the int8 step on each device, its weights copied there
+            infer_step = {dev: q.make_quantized_infer_step(
+                _to_device(sd, dev), _to_device(bundle, dev), cfg.img_size,
+                forward=forward) for dev in dict.fromkeys(devices)}
 
     # under --artifact the runners never touch a model: the artifact's step
     # (weights loaded) is the infer_step
@@ -292,7 +322,18 @@ def main(argv=None) -> dict:
                   tta=args.tta, blend=args.blend, num_workers=cfg.num_worker,
                   stain=cfg.stain, infer_step=infer_step,
                   uncertainty=args.uncertainty, device=device)
-    if args.banded:
+    if args.sharded:
+        from pdac_pathological_image_segmentation_tpu_torch.infer.wsi_sharded import (
+            ShardedSlidingWindow,
+        )
+
+        runner = ShardedSlidingWindow(
+            model, devices, tile=cfg.img_size,
+            batch_per_device=max(1, max(cfg.batch_size, 8) // len(devices)),
+            tta=args.tta, blend=args.blend, stain=cfg.stain,
+            infer_step=infer_step, uncertainty=args.uncertainty,
+            roll_h=args.band_h)
+    elif args.banded:
         runner = BandedSlidingWindow(model, band_h=args.band_h, **common)
     else:
         runner = SlidingWindowInference(model, **common)

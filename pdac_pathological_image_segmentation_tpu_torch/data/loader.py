@@ -13,7 +13,12 @@
   copied ahead of the consumer;
 * the epoch order is ``RandomState(seed + epoch)``'s permutation
   (``DistributedSampler.set_epoch``); a final partial batch is wrap-padded
-  from the epoch's start and marked in ``valid``.
+  from the epoch's start and marked in ``valid``;
+* in a process group of N ranks (``parallel/mesh.py``) each rank loads
+  its share, as the JAX loader splits by process: the global order
+  wrap-padded to ⌈n/N⌉ per rank and sliced ``rank::N``, a rank's batch
+  ``batch_size / N`` rows (the global batch being the ranks' batches in
+  rank order) and ``num_workers / N`` decode threads.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from PIL import Image
 from pdac_pathological_image_segmentation_tpu_torch import host_to_device
 from pdac_pathological_image_segmentation_tpu_torch.config import Config
 from pdac_pathological_image_segmentation_tpu_torch.data import native_loader
+from pdac_pathological_image_segmentation_tpu_torch.parallel import mesh
 
 PREFETCH = 2  # batches decoded and on the device ahead of the consumer
 
@@ -81,21 +87,43 @@ def epoch_indices(n: int, epoch: int, seed: int, shuffle: bool) -> np.ndarray:
     return np.arange(n)
 
 
+def _epoch_indices(n: int, epoch: int, seed: int, shuffle: bool,
+                   process_index: int, process_count: int) -> np.ndarray:
+    """One rank's share of the epoch (the JAX loader's ``_epoch_indices``,
+    ``DistributedSampler``'s semantics): the global order wrap-padded so
+    every rank gets ⌈n / world⌉ samples, sliced ``rank::world``."""
+    order = epoch_indices(n, epoch, seed, shuffle)
+    per_host = -(-n // process_count)
+    total = per_host * process_count
+    if total > n:
+        order = np.concatenate([order, order[: total - n]])
+    return order[process_index::process_count]
+
+
 class PatchLoader:
     """Epoch iterator of :class:`Batch` es on ``device``.
 
+    ``batch_size`` is the global batch; in a group of N ranks this rank
+    loads ``batch_size / N`` rows of each (a batch that does not divide
+    raises) from its share of the epoch (:func:`_epoch_indices`);
+    ``split=False`` loads the whole epoch in this process.
     ``native_hw`` is the ``(height, width)`` the native decoder decodes
     every pair at, from the first pair's PNG headers, or None when the first
     image and mask differ (then PIL's :func:`decode_pair` decodes them)."""
 
     def __init__(self, dataset: PatchDataset, batch_size: int, shuffle: bool,
-                 device, num_workers: int = 8) -> None:
+                 device, num_workers: int = 8, split: bool = True) -> None:
         self.dataset = dataset
-        self.batch_size = batch_size
+        self.rank, self.world = ((mesh.rank(), mesh.world_size()) if split
+                                 else (0, 1))
+        if batch_size % self.world:
+            raise ValueError(f"global batch_size {batch_size} must divide "
+                             f"by the {self.world} ranks")
+        self.batch_size = batch_size // self.world  # this rank's rows
         self.shuffle = shuffle
         self.device = torch.device(device)
         self.seed = dataset.cfg.seed
-        self.num_workers = max(1, num_workers)
+        self.num_workers = max(1, num_workers // self.world)
         self.native_hw = None
         if len(dataset):
             hw_img = native_loader.png_info(str(dataset.img_paths[0]))
@@ -104,7 +132,8 @@ class PatchLoader:
                 self.native_hw = hw_img
 
     def __len__(self) -> int:
-        return -(-len(self.dataset) // self.batch_size)
+        per_rank = -(-len(self.dataset) // self.world)
+        return -(-per_rank // self.batch_size)
 
     def _native_decode(self, chunk: np.ndarray) -> Tuple[torch.Tensor, ...]:
         """One batch by the native decoder, into pinned host tensors when
@@ -128,8 +157,8 @@ class PatchLoader:
 
     def host_batches(self, epoch: int) -> Iterator[Tuple[torch.Tensor, ...]]:
         """``(images, masks, valid)`` host tensors of one epoch."""
-        idxs = epoch_indices(len(self.dataset), epoch, self.seed,
-                             self.shuffle)
+        idxs = _epoch_indices(len(self.dataset), epoch, self.seed,
+                              self.shuffle, self.rank, self.world)
         # PIL's pool, for a dataset the native decoder does not take
         with (ThreadPoolExecutor(max_workers=self.num_workers)
               if self.native_hw is None

@@ -129,8 +129,10 @@ class Evaluator:
         metrics (averaged over the classes), and for a binary model
         ``best_threshold``, ``best_dice`` and ``dice_at_0.5``."""
         cfg = self.cfg
+        # one process evaluates the whole split, in a process group too
         loader = PatchLoader(test_set, cfg.batch_size, shuffle=False,
-                             device=self.device, num_workers=cfg.num_worker)
+                             device=self.device, num_workers=cfg.num_worker,
+                             split=False)
         if figure_path:
             os.makedirs(figure_path, exist_ok=True)
         loss_meter, score_meter = AverageMeter(), AverageMeter()

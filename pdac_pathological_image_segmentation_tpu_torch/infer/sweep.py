@@ -1,13 +1,14 @@
 """Batched multi-slide inference sweep (BASELINE.json config #5; the JAX
-package's ``infer/sweep.py``) on one device.
+package's ``infer/sweep.py``).
 
-Slides stream one after another through :class:`SlidingWindowInference`:
-each slide's tiles go to the device in batches, stitching stays on the
-device, and the host fetches each finished map once.  The JAX sweep's
-mesh path (tiles batch-sharded across chips, the banded halo-exchange
-runner, slides split across hosts by process index) is not ported yet
-(``ROADMAP.md`` Queue 1 item 4.5): here the slides are all process 0's of
-1.
+Slides stream one after another through :class:`SlidingWindowInference`
+(one device), or with ``sharded=True`` through
+:class:`~.wsi_sharded.ShardedSlidingWindow` over a device list (bands
+across devices, the halo exchanged once per slide): each slide's tiles go
+to the devices in batches, stitching stays on the devices, and the host
+fetches each finished map once.  In a process group the slides are split
+round-robin by rank (each rank segments its own), as the JAX sweep splits
+them by process index.
 """
 
 from __future__ import annotations
@@ -26,6 +27,13 @@ from pdac_pathological_image_segmentation_tpu_torch.data.geojson import (
 from pdac_pathological_image_segmentation_tpu_torch.infer.wsi import (
     GridTiler,
     SlidingWindowInference,
+    _runner_device,
+)
+from pdac_pathological_image_segmentation_tpu_torch.infer.wsi_sharded import (
+    ShardedSlidingWindow,
+)
+from pdac_pathological_image_segmentation_tpu_torch.parallel import (
+    mesh as parallel_mesh,
 )
 
 
@@ -65,21 +73,31 @@ def run_sweep(
     serving artifact's ``step``, the int8 path), with ``device`` naming
     where it runs when ``model`` is None.
 
-    ``sharded=True`` or a ``mesh`` raises ``NotImplementedError``: the
-    multi-device sweep is ``ROADMAP.md`` Queue 1 item 4.5."""
-    if sharded or mesh is not None:
-        raise NotImplementedError(
-            "the sharded multi-device sweep (sharded=True, mesh=) is not "
-            "ported yet: ROADMAP.md Queue 1 item 4.5")
-    runner = SlidingWindowInference(
-        model, tile=tile, batch_size=batch_size, blend=blend, tta=tta,
-        infer_step=infer_step, device=device)
+    ``sharded=True`` runs the band-sharded runner over ``mesh`` (a device
+    list; default ``create_mesh()``, every visible card, or one CPU) with
+    ``batch_per_device = max(1, batch_size // D)``, as the JAX sweep; it
+    pays for slides whose canvas does not fit one device.  ``mesh`` alone
+    is ignored, as in the JAX sweep."""
+    rank, world = parallel_mesh.rank(), parallel_mesh.world_size()
+    if sharded:
+        devices = list(mesh) if mesh is not None else \
+            parallel_mesh.create_mesh(device=_runner_device(model, device))
+        runner = ShardedSlidingWindow(
+            model, devices, tile=tile,
+            batch_per_device=max(1, batch_size // len(devices)),
+            blend=blend, tta=tta, infer_step=infer_step)
+    else:
+        runner = SlidingWindowInference(
+            model, tile=tile, batch_size=batch_size, blend=blend, tta=tta,
+            infer_step=infer_step, device=device)
 
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
 
     results: List[Dict] = []
     for i, slide in enumerate(slides):
+        if i % world != rank:
+            continue  # another rank's slide
         source = (
             GridTiler(slide, tile=tile, stride=stride or tile)
             if isinstance(slide, np.ndarray) else slide

@@ -12,6 +12,12 @@ global RNG (flax ``nn.Dropout`` draws from the step's ``dropout`` key).
   one 64-bit number drawn from the step's generator.  The mask repeats for
   equal generator states on one device; the card's and the CPU's streams
   differ for the same seed.
+
+In a data-parallel step each rank holds some rows of the global batch:
+:func:`set_dropout_rows` gives every dropout module of a model the rows'
+``(start, stop, total)``, and the mask is drawn for all ``total`` rows
+(the same draws on every rank) and sliced, so N ranks drop what one
+device would.  ``rows=None`` (the default) draws for the rows present.
 """
 
 from __future__ import annotations
@@ -26,6 +32,25 @@ def _check_rate(p: float) -> float:
     if not 0.0 <= p < 1.0:
         raise ValueError(f"dropout p must be in [0, 1), got {p}")
     return p
+
+
+def _global_rows(module, n: int) -> tuple:
+    """``(start, stop, total)`` of the module's rows in the global batch."""
+    rows = getattr(module, "rows", None)
+    if rows is None:
+        return 0, n, n
+    start, stop, total = rows
+    if stop - start != n:
+        raise ValueError(f"dropout rows {rows} do not match a batch of {n}")
+    return rows
+
+
+def set_dropout_rows(model: nn.Module, rows) -> None:
+    """Give every dropout module of ``model`` its rows ``(start, stop,
+    total)`` in the global batch (None: the rows present)."""
+    for m in model.modules():
+        if isinstance(m, (Dropout, Dropout2d)):
+            m.rows = rows
 
 
 def _need_generator(generator, what: str) -> None:
@@ -50,8 +75,9 @@ class Dropout2d(nn.Module):
             return x
         _need_generator(generator, "Dropout2d")
         n, c = x.shape[:2]
-        keep = torch.rand((n, c, 1, 1), generator=generator,
-                          device=generator.device) >= self.p
+        start, stop, total = _global_rows(self, n)
+        keep = torch.rand((total, c, 1, 1), generator=generator,
+                          device=generator.device)[start:stop] >= self.p
         keep = host_to_device(keep, x.device)
         return torch.where(keep, x / (1.0 - self.p), torch.zeros_like(x))
 
@@ -74,5 +100,7 @@ class Dropout(nn.Module):
         seed = int(torch.randint(0, 2 ** 63 - 1, (), generator=generator,
                                  device=generator.device))
         local = torch.Generator(device=x.device).manual_seed(seed)
-        keep = torch.rand(x.shape, generator=local, device=x.device) >= self.p
+        start, stop, total = _global_rows(self, x.shape[0])
+        keep = torch.rand((total, *x.shape[1:]), generator=local,
+                          device=x.device)[start:stop] >= self.p
         return torch.where(keep, x / (1.0 - self.p), torch.zeros_like(x))

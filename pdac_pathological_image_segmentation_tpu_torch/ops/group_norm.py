@@ -370,6 +370,11 @@ def group_norm_relu(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
         raise ValueError(f"C={c} is not a multiple of num_groups={num_groups}")
     if stats is not None:
         _check_stats(stats, x, num_groups)
+    if n == 0:
+        # a rank that holds no rows of a data-parallel micro-batch still
+        # runs the forward (its BatchNorm joins the collectives): nothing
+        # to launch
+        return torch.empty_like(x)
     if x.device.type == "cpu":
         if stats is not None:
             stats.copy_(group_stats_reference(x, num_groups, eps))
@@ -466,6 +471,9 @@ def group_norm_relu_backward(dy: torch.Tensor, x: torch.Tensor,
                 f"{name} must match x ({x.dtype} {tuple(x.shape)} on "
                 f"{x.device}), got {t.dtype} {tuple(t.shape)} on {t.device}")
     _check_stats(stats, x, num_groups)
+    if n == 0:  # no rows: nothing to launch (see group_norm_relu)
+        zeros = torch.zeros(c, dtype=torch.float32, device=x.device)
+        return torch.empty_like(x), zeros, zeros.clone()
     if x.device.type == "cpu":
         return group_norm_relu_backward_reference(dy, x, gamma, out, stats,
                                                   num_groups, relu)

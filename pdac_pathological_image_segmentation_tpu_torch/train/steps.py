@@ -8,6 +8,14 @@ forward (recomputed in the backward under ``remat``) → the objective →
 backward (the GroupNorm backward kernel at every GN site) → Adam, over
 ``grad_accum_steps`` microbatches.  It returns the loss and the score as
 tensors on the device and never waits for the card.
+
+In a process group of N > 1 ranks, each rank's step takes
+its rows of the global batch and computes what the JAX step computes on
+the global array: the augmentation draws and the dropout masks are drawn
+for the global batch and sliced, BatchNorm takes the global statistics
+(``parallel/batchnorm.py``), the objective the global sums
+(``make_objective(cfg, reduce=global_sum)``), and one ``all_reduce`` sums
+the ranks' gradients before Adam.
 """
 
 from __future__ import annotations
@@ -24,12 +32,15 @@ from pdac_pathological_image_segmentation_tpu_torch.config import (
     IMAGENET_MEAN,
     IMAGENET_STD,
 )
+from pdac_pathological_image_segmentation_tpu_torch.models.dropout import (
+    set_dropout_rows,
+)
 from pdac_pathological_image_segmentation_tpu_torch.ops.augment import (
     draw_augment_scalars,
     eval_images,
     eval_transform,
     make_augment_tables,
-    train_transform,
+    train_transform_drawn,
 )
 from pdac_pathological_image_segmentation_tpu_torch.ops.fused_augment import (
     fused_train_transform,
@@ -40,6 +51,7 @@ from pdac_pathological_image_segmentation_tpu_torch.ops.resize import (
 from pdac_pathological_image_segmentation_tpu_torch.ops.stain import (
     check_method,
 )
+from pdac_pathological_image_segmentation_tpu_torch.parallel import mesh
 from pdac_pathological_image_segmentation_tpu_torch.train.objective import (
     Objective,
 )
@@ -149,66 +161,106 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     (``steps.py:92-94`` of the JAX package).  ``debug_nans`` checks each
     microbatch's loss before its backward and the gradients before the
     update (the host waits for the card there), raising
-    ``FloatingPointError`` that names the first non-finite tensor."""
+    ``FloatingPointError`` that names the first non-finite tensor.
+
+    In a process group of N > 1 ranks the step is data-parallel: its
+    batch is this rank's rows of a global batch of N times its size (rank
+    r holds rows ``[r·n, (r+1)·n)``); ``model``'s BatchNorm must be
+    ``parallel.batchnorm.GlobalBatchNorm2d`` and ``objective`` one made
+    with a global ``reduce``.  Microbatch i of ``grad_accum_steps`` is global rows
+    ``[i·B/k, (i+1)·B/k)``, as in the JAX step, so a rank may hold none of
+    its rows; it still runs the microbatch's forward and backward (and
+    joins their collectives).  In one process, or a group of one rank, the
+    step is the one-device step."""
     check_method(stain)
     k = int(grad_accum_steps)
     if k < 1:
         raise ValueError(f"grad_accum_steps must be >= 1, got {k}")
+    world, rank = mesh.world_size(), mesh.rank()
+    if world > 1:
+        if any(type(m) is nn.BatchNorm2d for m in model.modules()):
+            raise ValueError("a data-parallel step needs the global "
+                             "BatchNorm (parallel.batchnorm."
+                             "convert_batchnorm)")
+        if getattr(objective, "reduce", None) is None:
+            raise ValueError("a data-parallel step needs an objective with "
+                             "a global reduce (make_objective(cfg, "
+                             "reduce=global_sum))")
     dtype = getattr(model, "compute_dtype", torch.float32)
     forward = remat_forward(model) if remat else model
 
-    def augment_batch(images, masks, generator):
+    def augment_batch(images, masks, generator, rows=None):
+        """The batch's augmentation; ``rows`` ``(start, stop, total)``
+        draws for ``total`` rows and takes ``[start, stop)``."""
         if not augment:
             return eval_transform(images, masks, img_size, stain=stain)
+        n = images.shape[0]
+        start, stop, total = rows or (0, n, n)
+        facs, ints = draw_augment_scalars(total, generator)
+        facs, ints = facs[start:stop], ints[start:stop]
         if fused_augment and can_fuse_augment(images.shape, img_size,
                                               parity_mode, stain, dtype):
-            facs, ints = draw_augment_scalars(images.shape[0], generator)
             tables = make_augment_tables(facs, ints).to(images.device)
             return fused_train_transform(images, masks, tables)
-        return train_transform(images, masks, img_size, generator,
-                               parity_mode=parity_mode, stain=stain,
-                               dtype=dtype)
+        return train_transform_drawn(images, masks, img_size, facs, ints,
+                                     parity_mode=parity_mode, stain=stain,
+                                     dtype=dtype)
 
-    def micro(imgs, msks, valid, generator):
-        out = forward(imgs, generator)
-        loss = objective.loss_fn(out, msks, valid)
-        if debug_nans and not torch.isfinite(loss):
-            raise FloatingPointError(f"non-finite loss {loss.detach().item()}")
-        loss.backward()
+    def micro(imgs, msks, valid, generator, rows=None):
+        set_dropout_rows(model, rows)
+        try:
+            out = forward(imgs, generator)
+            loss = objective.loss_fn(out, msks, valid)
+            if debug_nans and not torch.isfinite(loss):
+                raise FloatingPointError(
+                    f"non-finite loss {loss.detach().item()}")
+            loss.backward()
+        finally:
+            set_dropout_rows(model, None)
         with torch.no_grad():
             score = objective.score_fn(out, msks, valid)
         return loss.detach(), score
 
+    def check_gradients():
+        bad = next((name for name, p in model.named_parameters()
+                    if p.grad is not None
+                    and not torch.isfinite(p.grad).all()), None)
+        if bad is not None:
+            raise FloatingPointError(f"non-finite gradient of {bad}")
+
     def step(images, masks, valid, generator: torch.Generator):
+        # this rank's rows [r0, r0 + n) of a global batch of `total`
         n = images.shape[0]
-        if n % k:
-            raise ValueError(f"batch {n} does not divide into "
+        total, r0 = n * world, rank * n
+        if total % k:
+            raise ValueError(f"batch {total} does not divide into "
                              f"grad_accum_steps={k} microbatches")
         model.train()
-        imgs, msks = augment_batch(images, masks, generator)
+        imgs, msks = augment_batch(images, masks, generator,
+                                   (r0, r0 + n, total))
+        if valid is None and (k > 1 or world > 1):
+            valid = torch.ones(n, dtype=torch.bool, device=imgs.device)
         optimizer.zero_grad(set_to_none=True)
-        if k == 1:
-            loss, score = micro(imgs, msks, valid, generator)
-        else:
-            if valid is None:
-                valid = torch.ones(n, dtype=torch.bool, device=imgs.device)
-            m = n // k
-            loss = score = 0.0
-            for i in range(k):
-                part = slice(i * m, (i + 1) * m)
-                li, si = micro(imgs[part], msks[part], valid[part],
-                               generator)
-                loss, score = loss + li, score + si
+        m = total // k
+        loss = score = 0.0
+        for i in range(k):
+            # the rank's rows of global rows [i·m, (i+1)·m), maybe none
+            lo = max(i * m, r0)
+            hi = max(min((i + 1) * m, r0 + n), lo)
+            part = slice(lo - r0, hi - r0)
+            li, si = micro(imgs[part], msks[part],
+                           None if valid is None else valid[part], generator,
+                           (lo - i * m, hi - i * m, m) if world > 1 else None)
+            loss, score = loss + li, score + si
+        if k > 1:
             for p in model.parameters():
                 if p.grad is not None:
                     p.grad.div_(k)
             loss, score = loss / k, score / k
+        if world > 1:
+            mesh.sum_gradients(model)
         if debug_nans:
-            bad = next((name for name, p in model.named_parameters()
-                        if p.grad is not None
-                        and not torch.isfinite(p.grad).all()), None)
-            if bad is not None:
-                raise FloatingPointError(f"non-finite gradient of {bad}")
+            check_gradients()
         optimizer.step()
         return loss, score
 

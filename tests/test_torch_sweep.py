@@ -5,8 +5,8 @@ converters), 32² tiles and two non-square slides: probabilities within
 ``tests/test_torch_wsi.py``'s ``PROB_ATOL`` (5e-4) and masks as that
 file's ``_assert_maps_close`` holds them, the records equal, the GeoJSON
 polygons equal to the JAX ``mask_to_polygons`` of the same mask, the
-``out_dir`` files, a tile source beside the numpy slides, and the sharded
-sweep's refusals."""
+``out_dir`` files and a tile source beside the numpy slides (the sharded
+sweep: ``tests/test_torch_wsi_sharded.py``)."""
 
 import json
 import os
@@ -182,10 +182,3 @@ def test_sweep_takes_tile_sources_and_an_infer_step(models):
                            infer_step=make_infer_step(model, TILE),
                            device="cpu")
     np.testing.assert_array_equal(stepped["prob"], got["prob"])
-
-
-def test_sharded_sweep_raises_naming_the_roadmap(models):
-    _, model, _, _ = models
-    for kw in ({"sharded": True}, {"mesh": object()}):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4.5"):
-            run_sweep(model, _slides(), tile=TILE, **kw)

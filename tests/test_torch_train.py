@@ -652,18 +652,6 @@ def test_checkpoint_round_trip_restores_model_and_adam(tmp_path):
     assert restore_checkpoint(str(tmp_path / "none"), fresh, fresh_opt) is None
 
 
-@pytest.mark.parametrize("knob", ["num_devices", "gns_every"])
-def test_unported_trainer_options_name_the_roadmap(knob, data_root, tmp_path):
-    raw = {"model": "fpn", "img_size": SIZE, "compute_dtype": "float32",
-           "batch_size": 4}
-    raw[knob] = {"num_devices": 2}.get(knob, 1)
-    cfg = Config.from_dict(raw)
-    split = str(data_root / "train")
-    ds = PatchDataset(*discover_split(split), cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(cfg, str(tmp_path), ds, ds, device="cpu")
-
-
 @pytest.mark.parametrize("value", [True, False])
 def test_debug_nans_traps_a_nan_weight_as_the_jax_cli(value, data_root,
                                                        tmp_path):

@@ -18,7 +18,7 @@ CPU: ``ops/stitch.py``, ``ops/tissue.py``, ``data/synthetic.py``,
 * ``cli.overlay --device cpu`` against the JAX ``cli.overlay.main`` on one
   port-written ``best.pth``: probability maps within 5e-4, the GeoJSON equal
   to the JAX ``mask_to_polygons`` of the port's mask, ``overlay.png`` equal
-  to the stated composite; the flags that are not ported raise.
+  to the stated composite (``--sharded``: ``tests/test_torch_wsi_sharded.py``).
 """
 
 import contextlib
@@ -701,17 +701,6 @@ def test_cli_overlay_int8_refusals(cli_run, tmp_path):
             cli_overlay.main(["--config", str(cfg), "--device", "cpu",
                               "--save_path", str(tmp_path / key),
                               "--pth_path", str(pth), "--int8"])
-
-
-@pytest.mark.parametrize("flags,match", [
-    (["--sharded"], "ROADMAP.md"),
-    (["--sharded", "--int8"], "ROADMAP.md"),
-])
-def test_cli_overlay_unported_flags_raise(cli_run, flags, match):
-    with pytest.raises(NotImplementedError, match=match):
-        cli_overlay.main(["--config", str(cli_run / "cfg.yaml"),
-                          "--save_path", str(cli_run / "x"), "--pth_path",
-                          str(cli_run / "pth")] + flags)
 
 
 @pytest.mark.parametrize("flags", [
