@@ -91,12 +91,20 @@ Phases, each of which fails the run (exit code 1) on any error:
    efficientnet-pytorch and torchvision files with their classifier tops:
    the trainer's encoder must equal the file's before its first step
    (FPN/efficientnet-b7's batch 32 takes about 56 GiB);
-5c. evaluation, a main path per run: ``cli.test --device cuda`` on each
+5c. evaluation, a main path per run: ``cli.test --device cuda:0`` on each
    ``best.pth`` of phase 5 (16 test patches, batch 8, no figures, so
    matplotlib is not required); the GN forward launches must be 7 x the
    eval batches of each FPN, all cluster, and ``metrics.csv`` and
    ``threshold_sweep.csv`` whole; then each in f32 on the card and on the
    CPU, ``test_score`` within 1e-3;
+5d. sharded evaluation, in process, on phase 5's FPN ``best.pth`` and
+   5c's configs: the ``Evaluator`` over ``[cuda:0] * 2`` (one replica,
+   a stream per shard) against ``[cuda:0]``: f32 (TF32 off) scores and
+   every ``metrics.csv`` cell within 1e-4, bf16 within 1e-3, a main path
+   in bf16 (GN launches 7 x the shards' forwards at 4 rows, all
+   cluster); the seconds of each, bf16 warm too; with two or more cards
+   ``cli.test`` with ``num_devices: 2`` over two cards against one card
+   within 1e-4, else "distinct cards: skipped, 1 card";
 6. one train step timed at the config's batch (128), 512², bf16, input on
    the card, over 5 steps after 2 (8 after 3 until phase 13 took the
    time), for each model (a model whose batch does not fit is cut to
@@ -254,6 +262,7 @@ AUG_JITTER_OPS_PER_PIXEL = 4 * 3 * 8
 TRAIN_BATCH = 32  # the smoke's cut of the config's batch
 CONFIG_BATCH = 128  # configs/train_config.yaml
 EVAL_BATCH = 8  # cli.test's batch: a served bucket's, and cheap on the CPU
+EVAL_SHARDS = 2  # 5d: the evaluation batch split over [cuda:0] * 2
 UNET_INFER_BATCH = 512  # the JAX bench's tile->mask batch (bench.py)
 # the registry's other architectures on resnet18, after FPN and ResUNet
 NEW_MODELS = ("deeplabv3+", "pspnet", "unet++")
@@ -480,8 +489,9 @@ def phase_kernels(cases: list | None = None) -> list:
                  for dt in (torch.bfloat16, torch.float32)
                  for n in BUCKETS for hw in GN_SITES]
         # the timed train step's batch, and the int8 whole-slide paths'
-        # (f32 GN at the config's batch)
-        cases += [(CONFIG_BATCH, 128, hw, hw, 32, True, dt)
+        # (f32 GN at the config's batch); an evaluation batch's shard (5d)
+        cases += [(n, 128, hw, hw, 32, True, dt)
+                  for n in (CONFIG_BATCH, EVAL_BATCH // EVAL_SHARDS)
                   for dt in (torch.bfloat16, torch.float32)
                   for hw in GN_SITES]
         # off the served path: no ReLU, and planes that are not a whole
@@ -1590,7 +1600,7 @@ def _run_cli_test(cfg_path: Path, pth: Path, out: Path, device: str) -> dict:
 
 
 def phase_evaluation(tmp: Path) -> dict:
-    """``cli.test --device cuda`` on every training run's ``best.pth``
+    """``cli.test --device cuda:0`` on every training run's ``best.pth``
     (bf16, the config's), then each again in f32 on the card (TF32 off)
     and on the CPU.  Only the FPN runs have GroupNorm sites.  A main path
     per run: the GN counters are set to 0 just before it and read just
@@ -1614,8 +1624,9 @@ def phase_evaluation(tmp: Path) -> dict:
     for tag, (model, _) in runs_of.items():
         # -- the main path: launches counted from here ...
         _gn_forward_counts(reset=True)
+        # card 0 alone: 5d splits the batch over devices
         runs[tag] = _run_cli_test(cfgs[tag, "bfloat16"], pths[tag],
-                                  tmp / f"test_{tag}_out", "cuda")
+                                  tmp / f"test_{tag}_out", "cuda:0")
         counts = _gn_forward_counts()
         # -- ... to here
         _check_forwards(f"cli.test {tag}", counts,
@@ -1644,7 +1655,7 @@ def phase_evaluation(tmp: Path) -> dict:
     # card vs CPU, f32 (comparison runs: not counted)
     for m in runs_of:
         card = _run_cli_test(cfgs[m, "float32"], pths[m],
-                             tmp / f"test_{m}_card32", "cuda")
+                             tmp / f"test_{m}_card32", "cuda:0")
         cpu = _run_cli_test(cfgs[m, "float32"], pths[m],
                             tmp / f"test_{m}_cpu32", "cpu")
         d_score = abs(card["test_score"] - cpu["test_score"])
@@ -1659,6 +1670,127 @@ def phase_evaluation(tmp: Path) -> dict:
     return {"by_variant": by_variant,
             "scores": {m: runs[m]["test_score"] for m in runs_of},
             "seconds": {m: runs[m]["seconds"] for m in runs_of}}
+
+
+# -- phase 5d: sharded evaluation --------------------------------------------
+
+def _evaluate_in_process(cfg_path: Path, pth: Path, out: Path,
+                         mesh: list) -> dict:
+    """``Evaluator(cfg, pth, mesh=mesh).run`` on the config's test split,
+    ``metrics.csv`` under ``out``; the result with the run's seconds and
+    the number of model replicas."""
+    from pdac_pathological_image_segmentation_tpu_torch import load_config
+    from pdac_pathological_image_segmentation_tpu_torch.data.discovery import (
+        discover_split,
+    )
+    from pdac_pathological_image_segmentation_tpu_torch.data.loader import (
+        PatchDataset,
+    )
+    from pdac_pathological_image_segmentation_tpu_torch.infer.evaluate import (
+        Evaluator,
+    )
+
+    cfg = load_config(str(cfg_path))
+    evaluator = Evaluator(cfg, str(pth), mesh=mesh)
+    data = PatchDataset(*discover_split(cfg.test_path), cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = evaluator.run(data, metrics_csv=str(out / "metrics.csv"),
+                           verbose=False)
+    result["seconds"] = time.perf_counter() - t0
+    result["replicas"] = len(evaluator.replicas)
+    return result
+
+
+def _eval_gaps(what: str, got: dict, want: dict, bound: float) -> dict:
+    """``test_score``, ``test_loss`` and every ``metrics.csv`` cell of two
+    evaluations within ``bound``, the same samples in the same order;
+    returns the largest gaps read."""
+    rows = [[r.split(",") for r in Path(res["metrics_csv"]).read_text()
+             .splitlines()[1:]] for res in (got, want)]
+    if got["n_samples"] != want["n_samples"] or len(rows[0]) != len(
+            rows[1]) or [r[:2] for r in rows[0]] != [r[:2] for r in rows[1]]:
+        raise AssertionError(f"{what}: samples {got['n_samples']} vs "
+                             f"{want['n_samples']}, or rows out of order")
+    gaps = {k: abs(got[k] - want[k]) for k in ("test_score", "test_loss")}
+    gaps["metrics_csv"] = max(
+        abs(float(a) - float(b)) for ra, rb in zip(*rows)
+        for a, b in zip(ra[2:], rb[2:]))
+    if not max(gaps.values()) <= bound:
+        raise AssertionError(f"{what}: gaps {gaps} above {bound}")
+    log(f"[eval-sharded] {what}: |Δ test_score| {gaps['test_score']:.3g}, "
+        f"|Δ test_loss| {gaps['test_loss']:.3g}, metrics.csv cells "
+        f"{gaps['metrics_csv']:.3g} (bound {bound:g}); {got['n_samples']} "
+        f"samples in order")
+    return gaps
+
+
+def phase_sharded_evaluation(tmp: Path) -> dict:
+    """5d: phase 5's FPN/resnet18 ``best.pth`` on phase 5c's test configs,
+    in process: the ``Evaluator`` over ``[cuda:0] * 2`` against ``[cuda:0]``
+    in f32 (TF32 off) within 1e-4, then in bf16 within 1e-3 as a main
+    path (the GN counters set to 0 just before the sharded run and read
+    just after: every launch at the shard's rows, all cluster), then bf16
+    again for its seconds; with two or more cards, ``cli.test`` with
+    ``num_devices: 2`` over two cards against one card."""
+    import yaml
+
+    set_tf32(False)
+    pth = tmp / "train_fpn_out" / "pth"
+    one, two = [torch.device("cuda", 0)], [torch.device("cuda", 0)] * 2
+    batches = -(-N_TEST // EVAL_BATCH)
+    runs, gaps = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        cfg_path = tmp / f"test_fpn_{dtype}.yaml"
+        runs[dtype, 1] = _evaluate_in_process(
+            cfg_path, pth, tmp / f"eval_one_{dtype}", one)
+        # -- the main path (bf16): launches counted from here ...
+        counts = _gn_forward_counts(reset=True)
+        runs[dtype, 2] = _evaluate_in_process(
+            cfg_path, pth, tmp / f"eval_sharded_{dtype}", two)
+        counts = _gn_forward_counts()
+        # -- ... to here
+        _check_forwards(f"Evaluator over [cuda:0] * {EVAL_SHARDS} {dtype}",
+                        counts, {EVAL_BATCH // EVAL_SHARDS:
+                                 EVAL_SHARDS * batches}, dtype)
+        if runs[dtype, 2]["replicas"] != 1:
+            raise AssertionError(f"[cuda:0] * 2 holds "
+                                 f"{runs[dtype, 2]['replicas']} replicas")
+        # bf16 activations round at 2^-8: a shard's convolutions may take
+        # another cuDNN plan than the whole batch's
+        gaps[dtype] = _eval_gaps(f"{dtype}, [cuda:0] * {EVAL_SHARDS} vs "
+                                 "[cuda:0]", runs[dtype, 2], runs[dtype, 1],
+                                 1e-4 if dtype == "float32" else 1e-3)
+    by_variant = counts[2]
+    # bf16 once more, warm, for its seconds (cuDNN's f32 plans at 4 rows,
+    # TF32 off, take an FFT path ~7x slower than at 8: §5 of PERF.md)
+    seconds = {f"{dtype}_{n}": {"first": runs[dtype, n]["seconds"]}
+               for dtype, n in runs}
+    for n, mesh in ((1, one), (EVAL_SHARDS, two)):
+        seconds[f"bfloat16_{n}"]["warm"] = _evaluate_in_process(
+            tmp / "test_fpn_bfloat16.yaml", pth,
+            tmp / f"eval_again_bfloat16_{n}", mesh)["seconds"]
+    log("[eval-sharded] seconds of Evaluator.run over the 16 patches "
+        "(first, warm): " + ", ".join(
+            f"{k.replace('_', ' over ')} device(s) " + " / ".join(
+                f"{v:.3f}" for v in t.values())
+            for k, t in seconds.items()))
+    distinct = None
+    if torch.cuda.device_count() >= 2:
+        cfg = yaml.safe_load((tmp / "test_fpn_float32.yaml").read_text())
+        cfg_path = tmp / "test_fpn_float32_2cards.yaml"
+        cfg_path.write_text(yaml.safe_dump(dict(cfg, num_devices=2)))
+        got = _run_cli_test(cfg_path, pth, tmp / "test_fpn_2cards", "cuda")
+        want = _run_cli_test(tmp / "test_fpn_float32.yaml", pth,
+                             tmp / "test_fpn_1card", "cuda:0")
+        distinct = _eval_gaps("cli.test f32, num_devices: 2 over cards 0 "
+                              "and 1 vs card 0", got, want, 1e-4)
+        distinct["seconds"] = {"two_cards": got["seconds"],
+                               "one_card": want["seconds"]}
+    else:
+        log("[eval-sharded] distinct cards: skipped, 1 card")
+    return {"by_variant": by_variant, "gaps": gaps, "seconds": seconds,
+            "launches": counts[0], "distinct_cards": distinct}
 
 
 # -- phase 9: whole-slide inference ------------------------------------------
@@ -5073,6 +5205,8 @@ def main() -> int:
         phase_done("5 training")
         evaluation = phase_evaluation(tmp)
         phase_done("5c evaluation")
+        sharded_eval = phase_sharded_evaluation(tmp)
+        phase_done("5d sharded evaluation")
         steps = {m: phase_timed_step(card, m) for m in MODELS}
         steps.update({_tag(m, b): phase_timed_step(card, m, b)
                       for m, b in ENCODER_PATHS})
@@ -5170,6 +5304,7 @@ def main() -> int:
                for t, run in wsi_device.items()},
             "train": train["gn_forward"][2],
             "eval": evaluation["by_variant"]["fpn"],
+            "eval_sharded": sharded_eval["by_variant"],
             "wsi": wsi,
             f"serve_{b7_tag}": serve_b7_by_variant,
             f"train_{b7_tag}": train_new[b7_tag]["gn_forward"][2],
@@ -5268,9 +5403,10 @@ def main() -> int:
     kernels += [{k: v for k, v in r.items() if k != "mma_sync_ms"}
                 for r in int8_rows] + quantize_rows
     # each kernel of the paths ran on them, and on each new path
-    gn_paths = ("serve", "eval", "wsi", f"serve_{b7_tag}", f"eval_{b7_tag}",
-                f"wsi_{b7_tag}", "serve_int8", "overlay_int8", "serve_stain",
-                "wsi_device_bf16", "wsi_device_int8", "loadtest_fpn",
+    gn_paths = ("serve", "eval", "eval_sharded", "wsi", f"serve_{b7_tag}",
+                f"eval_{b7_tag}", f"wsi_{b7_tag}", "serve_int8",
+                "overlay_int8", "serve_stain", "wsi_device_bf16",
+                "wsi_device_int8", "loadtest_fpn",
                 "sweep", "wsi_sharded", "overlay_sharded_int8",
                 "sweep_sharded")
     fused_paths = list(train_runs) + ["train_unet++_3class_dice_ce",
@@ -5319,6 +5455,8 @@ def main() -> int:
         "sweep": {k: v for k, v in sweep.items() if k != "by_variant"}}}),
         flush=True)
     print(json.dumps({"multi_device": {
+        "sharded_evaluation": {k: v for k, v in sharded_eval.items()
+                               if k != "by_variant"},
         "data_parallel": {k: v for k, v in dp.items() if k != "paths"},
         "nccl": {k: v for k, v in nccl.items() if k != "paths"},
         "wsi_sharded": {k: v for k, v in wsi_sharded.items()

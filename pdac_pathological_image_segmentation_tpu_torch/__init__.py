@@ -44,11 +44,24 @@ def host_to_device(t: torch.Tensor, device) -> torch.Tensor:
     return t.to(device)
 
 
-def device_to_host(tensors) -> list:
-    """The tensors as numpy arrays, in one fetch: every copy is queued
-    without blocking, then the host waits once."""
-    host = [t.to("cpu", non_blocking=True) for t in tensors]
-    cuda = [t for t in tensors if t.is_cuda]
-    if cuda:
-        torch.cuda.current_stream(cuda[0].device).synchronize()
+def device_to_host(tensors, streams=None) -> list:
+    """The tensors as numpy arrays, in one fetch: each card's copy is
+    queued without blocking on the stream that made its tensor
+    (``streams``, one per tensor; None, or a None entry, is the current
+    stream of the tensor's card), then the host waits once on each
+    distinct stream, whatever card it is on."""
+    if streams is None:
+        streams = [None] * len(tensors)
+    host, waits = [], {}
+    for t, stream in zip(tensors, streams, strict=True):
+        if not t.is_cuda:
+            host.append(t.to("cpu"))
+            continue
+        if stream is None:
+            stream = torch.cuda.current_stream(t.device)
+        with torch.cuda.stream(stream):
+            host.append(t.to("cpu", non_blocking=True))
+        waits[stream] = None
+    for stream in waits:
+        stream.synchronize()
     return [h.numpy() for h in host]

@@ -14,6 +14,14 @@ the mean Test Score / Test Loss and writes triptych figures to
 metrics to ``metrics.csv`` and the 257-threshold sweep to
 ``threshold_sweep.csv``.  It runs on the card (``--device cuda``, the
 default) and raises when there is none unless ``--device cpu`` is passed.
+
+Each batch is split over every visible card, or over the first
+``num_devices`` of the YAML, as the JAX CLI's mesh splits it (a
+``batch_size`` they do not divide raises); ``--device cuda:K`` evaluates
+on card K alone, and ``--device cpu`` with ``num_devices: N`` splits it
+over ``[cpu] * N``.  There is no flag for it: the YAML drives it, as in
+the JAX CLI.  No process group is joined: under a launcher each process
+evaluates the whole split.
 """
 
 from __future__ import annotations

@@ -8,12 +8,21 @@ a binary model, the probability histograms of the threshold sweep.
 The host fetches once per batch.  As in the reference, the meters average
 per batch (n = 1 per batch, ``test.py:149-150``), not per sample; the
 wrap-padded samples of the last partial batch are masked out by ``valid``.
+
+Each batch is split along its rows over a list of devices (``mesh``), as
+the JAX ``Evaluator`` shards it over its mesh: every visible card by
+default, or the config's first ``num_devices``; ``[cpu] * n`` on the CPU.
+Each shard runs on its device and stream, with one model per distinct
+device.  The loss and the score stay the whole batch's: each of their
+ratios is formed once, of sums over every shard (:class:`_ShardSums`).
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import os
-from typing import Optional
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -42,6 +51,11 @@ from pdac_pathological_image_segmentation_tpu_torch.ops.metrics import (
     per_sample_confusion,
     prob_histograms,
     threshold_sweep,
+)
+from pdac_pathological_image_segmentation_tpu_torch.parallel.mesh import (
+    create_mesh,
+    indexed_device,
+    replicate,
 )
 from pdac_pathological_image_segmentation_tpu_torch.train.checkpoint import (
     BEST,
@@ -74,11 +88,13 @@ def resolve_pth(pth_path: str) -> str:
     raise FileNotFoundError(f"no checkpoint found at {pth_path}")
 
 
-def load_serving_state(cfg: Config, pth_path: str, device="cuda"):
+def load_serving_state(cfg: Config, pth_path: str, device="cuda",
+                       mesh: Optional[List[torch.device]] = None):
     """``(model, path)``: ``cfg``'s model with the weights of the
     checkpoint ``pth_path`` resolves to (:func:`resolve_pth`), in eval mode
-    on ``device`` (default ``"cuda"``, which raises without a card)."""
-    dev = resolve_device(device)
+    on ``device`` (default ``"cuda"``, which raises without a card), or,
+    given a ``mesh``, on its first device (the home device)."""
+    dev = indexed_device(mesh[0]) if mesh else resolve_device(device)
     path = resolve_pth(pth_path)
     model = build_model(cfg)
     model.load_state_dict(
@@ -87,35 +103,150 @@ def load_serving_state(cfg: Config, pth_path: str, device="cuda"):
     return model.to(dev).eval(), path
 
 
-class Evaluator:
-    """The test harness: ``Evaluator(cfg, pth_path, device).run(test_set)``."""
+def resolve_mesh(cfg: Config, device="cuda",
+                 mesh: Optional[List[torch.device]] = None
+                 ) -> List[torch.device]:
+    """The devices a batch is split over: ``mesh`` as given; else a card
+    named with its index alone; else ``create_mesh(cfg.num_devices)`` on
+    ``device``'s kind (every visible card, or ``[cpu] * (num_devices or
+    1)``), as the JAX ``Evaluator`` builds its mesh."""
+    if mesh is not None:
+        devices = [indexed_device(d) for d in mesh]
+        if not devices or len({d.type for d in devices}) > 1:
+            raise ValueError(f"mesh {mesh}: give one kind of device, at "
+                             "least once")
+        return devices
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is not None:
+        return [dev]
+    return create_mesh(cfg.num_devices, dev)
 
-    def __init__(self, cfg: Config, pth_path: str, device="cuda") -> None:
+
+class _ShardSums:
+    """The objective's ``reduce`` hook over the shards of one batch, in one
+    process (``parallel.mesh.global_sum`` is the same hook over ranks).
+
+    The JAX step forms each ratio of the loss and the score (a Dice, a
+    mean cross-entropy) from sums over the whole batch array.  Here each
+    shard's objective first runs collecting: every call's partial sums are
+    kept and handed back as they are (the shard's own ratios are dropped).
+    :meth:`total` then sums each call's partials over the shards on the
+    home device, and the objective runs once more replaying: its k-th call
+    returns the k-th total, so each ratio is formed once, of the batch's
+    sums.  A mean of the shards' ratios would not be the batch's Dice."""
+
+    def __init__(self) -> None:
+        self.start()
+
+    def start(self) -> None:
+        """A new batch: nothing collected, nothing to replay."""
+        self.parts: list = []  # per shard, each call's partial sums
+        self.totals: Optional[list] = None
+
+    def collect(self) -> None:
+        """Start the next shard's calls."""
+        self.parts.append([])
+
+    def total(self, home: torch.device) -> None:
+        """Sum each call's partials over the shards on ``home``, in mesh
+        order, and replay the totals from the next call on."""
+        self.totals = [functools.reduce(torch.add,
+                                        [p[k].to(home) for p in self.parts])
+                       for k in range(len(self.parts[0]))]
+        self.totals.reverse()
+
+    def __call__(self, t: torch.Tensor) -> torch.Tensor:
+        if self.totals is not None:
+            return self.totals.pop()
+        self.parts[-1].append(t)
+        return t
+
+
+class _Shard(NamedTuple):
+    """One shard's rows of a batch, on its device, made on ``stream``."""
+    stream: Optional[torch.cuda.Stream]
+    preds: torch.Tensor
+    masks: torch.Tensor
+    originals: torch.Tensor
+    counts: torch.Tensor
+
+
+class Evaluator:
+    """The test harness: ``Evaluator(cfg, pth_path, device, mesh).run(
+    test_set)``.  ``mesh`` is the device list each batch is split over
+    (:func:`resolve_mesh`); ``model`` is the home device's, the first of
+    the mesh, and every other distinct device holds a copy."""
+
+    def __init__(self, cfg: Config, pth_path: str, device="cuda",
+                 mesh: Optional[List[torch.device]] = None) -> None:
         self.cfg = cfg
-        self.device = resolve_device(device)
-        self.objective = make_objective(cfg)
-        self.model, self.pth = load_serving_state(cfg, pth_path, self.device)
+        self.mesh = resolve_mesh(cfg, device, mesh)
+        self.device = self.mesh[0]
+        self._sums = _ShardSums()
+        self.objective = make_objective(cfg, reduce=self._sums)
+        self.model, self.pth = load_serving_state(cfg, pth_path,
+                                                  mesh=self.mesh)
+        self.replicas = replicate(self.model, self.mesh)
+        self.streams = [torch.cuda.Stream(d) if d.type == "cuda" else None
+                        for d in self.mesh]
+
+    def _shard(self, dev, stream, images, masks, valid):
+        """One shard's rows, moved to ``dev`` and run there under
+        ``stream``: ``(out, masks, valid, hists, shard)``, the objective's
+        partial sums collected."""
+        obj = self.objective
+        model = self.replicas[dev]
+        with (torch.cuda.stream(stream) if stream is not None
+              else contextlib.nullcontext()):
+            images, masks, valid = (t.to(dev, non_blocking=True)
+                                    for t in (images, masks, valid))
+            imgs, msks = eval_transform(images, masks, self.cfg.img_size,
+                                        model.compute_dtype, self.cfg.stain)
+            out = model(imgs)
+            preds = obj.predict_fn(out)
+            if obj.num_classes == 1:
+                # the tumor probability exactly as predict_fn thresholds it
+                hists = prob_histograms(torch.sigmoid(out[:, 0].float()),
+                                        msks, valid)
+            else:
+                hists = torch.zeros((2, SWEEP_BINS + 1), dtype=torch.int64,
+                                    device=out.device)
+            self._sums.collect()
+            obj.loss_fn(out, msks, valid)
+            obj.score_fn(out, msks, valid)
+            return out, msks, valid, hists, _Shard(
+                stream, preds, msks, denormalize(imgs.float()),
+                per_sample_confusion(preds, msks, valid, obj.num_classes))
 
     @torch.inference_mode()
     def _step(self, images, masks, valid):
-        """``(loss, score, preds, masks, originals, counts, hists)`` of one
-        batch, all on the device."""
-        obj, model = self.objective, self.model
-        imgs, msks = eval_transform(images, masks, self.cfg.img_size,
-                                    model.compute_dtype, self.cfg.stain)
-        out = model(imgs)
-        preds = obj.predict_fn(out)
-        if obj.num_classes == 1:
-            # the tumor probability exactly as predict_fn thresholds it
-            hists = prob_histograms(torch.sigmoid(out[:, 0].float()), msks,
-                                    valid)
-        else:
-            hists = torch.zeros((2, SWEEP_BINS + 1), dtype=torch.int64,
-                                device=out.device)
-        return (obj.loss_fn(out, msks, valid), obj.score_fn(out, msks, valid),
-                preds, msks, denormalize(imgs.float()),
-                per_sample_confusion(preds, msks, valid, obj.num_classes),
-                hists)
+        """``(loss, score, shards, hists)`` of one batch on the home device
+        (``images``, ``masks``, ``valid`` lie there): its rows split into
+        ``len(mesh)`` contiguous shards in mesh order, each run on its
+        device and stream (:class:`_Shard`); the loss, the score and the
+        histograms are the whole batch's, on the home device's current
+        stream."""
+        # no record_stream: run's fetch waits on every stream before a
+        # batch's tensors are dropped
+        home, n = self.device, images.shape[0] // len(self.mesh)
+        self._sums.start()
+        runs = []
+        for i, (dev, stream) in enumerate(zip(self.mesh, self.streams)):
+            if stream is not None:
+                # after the batch's upload to the home card
+                stream.wait_stream(torch.cuda.current_stream(home))
+            rows = slice(i * n, (i + 1) * n)
+            runs.append(self._shard(dev, stream, images[rows], masks[rows],
+                                    valid[rows]))
+        for stream in self.streams:
+            if stream is not None:
+                torch.cuda.current_stream(home).wait_stream(stream)
+        self._sums.total(home)
+        out, msks, valid0 = runs[0][:3]  # shard 0 lies on the home device
+        loss = self.objective.loss_fn(out, msks, valid0)
+        score = self.objective.score_fn(out, msks, valid0)
+        hists = functools.reduce(torch.add, [r[3].to(home) for r in runs])
+        return loss, score, [r[4] for r in runs], hists
 
     def run(self, test_set: PatchDataset, figure_path: Optional[str] = None,
             max_figures: Optional[int] = None,
@@ -127,8 +258,13 @@ class Evaluator:
         ``metrics_csv`` and, for a binary model, the 257-threshold sweep to
         ``sweep_csv``.  Returns ``test_score``, ``test_loss``, the pooled
         metrics (averaged over the classes), and for a binary model
-        ``best_threshold``, ``best_dice`` and ``dice_at_0.5``."""
+        ``best_threshold``, ``best_dice`` and ``dice_at_0.5``.  A
+        ``batch_size`` that the mesh does not divide raises ``ValueError``
+        (as the JAX loader's batch-sharded ``device_put`` does)."""
         cfg = self.cfg
+        if cfg.batch_size % len(self.mesh):
+            raise ValueError(f"batch_size {cfg.batch_size} must divide by "
+                             f"the mesh's {len(self.mesh)} devices")
         # one process evaluates the whole split, in a process group too
         loader = PatchLoader(test_set, cfg.batch_size, shuffle=False,
                              device=self.device, num_workers=cfg.num_worker,
@@ -140,27 +276,33 @@ class Evaluator:
         all_counts = []  # per-sample confusion rows, in dataset order
         hist_total = np.zeros((2, SWEEP_BINS + 1), np.int64)
         for batch in loader.epoch(0):
-            loss, score, preds, msks, originals, counts, hists = self._step(
-                batch.image, batch.mask, batch.valid)
+            loss, score, shards, hists = self._step(batch.image, batch.mask,
+                                                    batch.valid)
             figures = bool(figure_path) and (max_figures is None
                                              or count < max_figures)
+            fields = ["counts"] + (["preds", "masks", "originals"]
+                                   if figures else [])
+            # one fetch: the batch's numbers, then each shard's rows
             fetched = device_to_host(
-                [loss, score, counts, hists, batch.valid]
-                + ([preds, msks, originals] if figures else []))
-            loss_h, score_h, counts_h, hists_h, valid_h = fetched[:5]
+                [loss, score, hists, batch.valid]
+                + [getattr(s, f) for s in shards for f in fields],
+                [None] * 4 + [s.stream for s in shards for _ in fields])
+            loss_h, score_h, hists_h, valid_h = fetched[:4]
+            # each field's shards, concatenated in mesh order
+            rows = {f: np.concatenate(fetched[4 + k::len(fields)])
+                    for k, f in enumerate(fields)}
             hist_total += hists_h
             loss_meter.update(float(loss_h))
             score_meter.update(float(score_h))
-            all_counts.append(counts_h[valid_h])
+            all_counts.append(rows["counts"][valid_h])
             if figures:
-                preds_h, msks_h, orig_h = fetched[5:]
                 for i in np.flatnonzero(valid_h):
                     if max_figures is not None and count >= max_figures:
                         break
                     count += 1
                     save_triptych(figure_path, count,
-                                  orig_h[i].transpose(1, 2, 0), msks_h[i],
-                                  preds_h[i])
+                                  rows["originals"][i].transpose(1, 2, 0),
+                                  rows["masks"][i], rows["preds"][i])
         counts_all = (np.concatenate(all_counts, axis=0) if all_counts
                       else np.zeros((0, 1, 4), np.float32))
         per_sample = derive_metrics(counts_all)  # each (N, C)

@@ -35,7 +35,6 @@ models only, as in the JAX package.
 from __future__ import annotations
 
 import contextlib
-import copy
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -44,7 +43,6 @@ import torch
 from pdac_pathological_image_segmentation_tpu_torch import (
     device_to_host,
     host_to_device,
-    resolve_device,
 )
 from pdac_pathological_image_segmentation_tpu_torch.infer.wsi import (
     _divided,
@@ -53,19 +51,10 @@ from pdac_pathological_image_segmentation_tpu_torch.infer.wsi import (
 from pdac_pathological_image_segmentation_tpu_torch.ops.stitch import (
     blend_window,
 )
-
-
-def _device(d) -> torch.device:
-    """``d`` as a device with an index on a card (``cuda`` → the current
-    card), so that equal devices compare equal."""
-    dev = resolve_device(d)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
-
-
-def _model_device(model) -> torch.device:
-    return _device(next(model.parameters()).device)
+from pdac_pathological_image_segmentation_tpu_torch.parallel.mesh import (
+    indexed_device,
+    replicate,
+)
 
 
 class _Band:
@@ -147,7 +136,7 @@ class ShardedSlidingWindow:
                 "ShardedSlidingWindow stitches 2-D per-device band "
                 "canvases; multi-class slides need SlidingWindowInference "
                 "(per-class canvases)")
-        self.devices = [_device(d) for d in devices]
+        self.devices = [indexed_device(d) for d in devices]
         if not self.devices:
             raise ValueError("devices is empty")
         self.n_devices = len(self.devices)
@@ -164,10 +153,8 @@ class ShardedSlidingWindow:
         if infer_step is None:
             if model is None:
                 raise ValueError("pass a model or an infer_step")
-            home = _model_device(model)
-            steps = {dev: make_infer_step(
-                model if dev == home else copy.deepcopy(model).to(dev),
-                tile, stain=stain) for dev in distinct}
+            steps = {dev: make_infer_step(replica, tile, stain=stain)
+                     for dev, replica in replicate(model, distinct).items()}
         elif callable(infer_step):
             if len(distinct) > 1:
                 raise ValueError(
@@ -175,7 +162,7 @@ class ShardedSlidingWindow:
                     "{device: step} mapping")
             steps = {distinct[0]: infer_step}
         else:
-            steps = {_device(k): v for k, v in infer_step.items()}
+            steps = {indexed_device(k): v for k, v in infer_step.items()}
             missing = [d for d in distinct if d not in steps]
             if missing:
                 raise ValueError(f"infer_step has no step for {missing}")

@@ -11,8 +11,9 @@ sharded whole-slide inference (``infer/wsi_sharded.py``):
   ``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``); a no-op when
   a group exists or no rendezvous is named; a failing rendezvous raises;
 * :func:`create_mesh` is the list of local devices the sharded runner
-  takes (``[cpu] * n`` on the CPU, the counterpart of the JAX tests'
-  forced CPU device count);
+  and the evaluator take (``[cpu] * n`` on the CPU, the counterpart of
+  the JAX tests' forced CPU device count); :func:`replicate` puts a model
+  on each distinct device of such a list;
 * :func:`rank`, :func:`world_size`, :func:`is_chief`,
   :func:`sync_global_devices` (a barrier);
 * :func:`global_sum`: a tensor of per-rank partial sums whose value is the
@@ -23,11 +24,14 @@ sharded whole-slide inference (``infer/wsi_sharded.py``):
 
 from __future__ import annotations
 
+import copy
 import os
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import torch
 import torch.distributed as dist
+
+from pdac_pathological_image_segmentation_tpu_torch import resolve_device
 
 LAUNCHER_ENV = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")
 
@@ -126,6 +130,25 @@ def create_mesh(num_devices: Optional[int] = None,
     if n > have:
         raise ValueError(f"requested {n} devices, have {have}")
     return [torch.device("cuda", i) for i in range(n)]
+
+
+def indexed_device(d) -> torch.device:
+    """``d`` as a device with an index on a card (``cuda`` → the current
+    card), so that equal devices compare equal."""
+    dev = resolve_device(d)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def replicate(model: torch.nn.Module, devices
+              ) -> Dict[torch.device, torch.nn.Module]:
+    """``{device: model}`` for each distinct device of ``devices``: the
+    model itself on the device it lies on, a deep copy moved to each
+    other one (``[cuda:0] * 4`` holds one replica)."""
+    home = indexed_device(next(model.parameters()).device)
+    return {dev: model if dev == home else copy.deepcopy(model).to(dev)
+            for dev in dict.fromkeys(indexed_device(d) for d in devices)}
 
 
 def all_reduce(t: torch.Tensor) -> torch.Tensor:
