@@ -47,6 +47,9 @@ from pdac_pathological_image_segmentation_tpu_torch.ops.stitch import (
 from pdac_pathological_image_segmentation_tpu_torch.ops.tissue import (
     tissue_fraction_np,
 )
+from pdac_pathological_image_segmentation_tpu_torch.utils.profiling import (
+    span,
+)
 
 # matplotlib's tab10 palette (RGB, 0..255): class k ≥ 1 of a multi-class
 # overlay takes entry (k − 1) mod 10, as the JAX package's figure does
@@ -332,7 +335,19 @@ class BandedSlidingWindow:
     Binary models only: a multi-class model raises (use
     :class:`SlidingWindowInference`).  After ``run``, ``last_run`` holds
     the band count and the band uploads' bytes, host read seconds and
-    device copy seconds."""
+    device copy seconds.  For bands made on the card (a tensor source),
+    ``band_upload_bytes`` is 0 and ``band_upload_s`` is the device time of
+    making them on the side stream, not a copy's.
+
+    Under a running ``torch.profiler``, ``run`` opens fixed-name spans
+    (``utils/profiling.py::span``), all on the calling thread:
+    ``wsi.plan`` (band assignment, output maps, first band request) once;
+    per band ``wsi.band.wait`` (for the prefetch thread),
+    ``wsi.band.fetch`` (finalize, casts, the copy to the host) and
+    ``wsi.band.write`` (the host maps, the canvas roll);
+    per batch ``wsi.batch.cut`` (the windows cut or read and uploaded),
+    ``wsi.batch.infer`` (the step's launches) and ``wsi.batch.stitch``.
+    None is open across another, and none per window."""
 
     def __init__(self, model, tile: int = 512, batch_size: int = 32,
                  band_h: Optional[int] = None, tta: bool = False,
@@ -368,30 +383,43 @@ class BandedSlidingWindow:
         """The ``(B, tile, tile, 3)`` windows at band-local ``(y, x)`` rows of
         ``local``, gathered from the device-resident band in one launch."""
         yx = host_to_device(torch.from_numpy(local), self.device)
-        span = torch.arange(self.tile, device=self.device)
-        rows = (yx[:, 0, None] + span)[:, :, None]
-        cols = (yx[:, 1, None] + span)[:, None, :]
+        offsets = torch.arange(self.tile, device=self.device)
+        rows = (yx[:, 0, None] + offsets)[:, :, None]
+        cols = (yx[:, 1, None] + offsets)[:, None, :]
         return band[rows, cols]
 
-    def _band_batches(self, source, idxs):
+    def _upload_prob_batches(self, source, idxs, y0):
+        """Window-upload inner loop: read each batch's windows on the pool,
+        upload them and run inference; ``(probs, band-local (y, x))``."""
         for start in range(0, len(idxs), self.batch_size):
-            chunk = idxs[start:start + self.batch_size]
-            pairs = list(self._pool.map(source.get, chunk))
-            images = np.stack([p[0] for p in pairs])
-            coords = np.asarray([p[1] for p in pairs], dtype=np.int64)
-            yield images, coords
+            with span("wsi.batch.cut"):
+                chunk = idxs[start:start + self.batch_size]
+                pairs = list(self._pool.map(source.get, chunk))
+                images = host_to_device(
+                    torch.from_numpy(np.stack([p[0] for p in pairs])),
+                    self.device)
+                local = (np.asarray([p[1] for p in pairs], dtype=np.int64)
+                         - np.asarray([y0, 0], np.int64))
+            with span("wsi.batch.infer"):
+                out = self._infer(images)
+            yield out, local
 
     def _band_prob_batches(self, coords_all, per_band_idxs, y0, band):
         """Band-input inner loop: cut each window batch out of the
-        device-resident band and run inference — no per-window upload."""
+        device-resident band and run inference — no per-window upload.
+        Spans close before each ``yield``, so the caller's stitch nests in
+        neither."""
         bs = self.batch_size
         for start in range(0, len(per_band_idxs), bs):
-            chunk = per_band_idxs[start:start + bs]
-            k = len(chunk)
-            local = np.zeros((bs, 2), np.int64)
-            local[:k] = [(coords_all[i][0] - y0, coords_all[i][1])
-                         for i in chunk]
-            out = self._infer(self._extract(band, local))
+            with span("wsi.batch.cut"):
+                chunk = per_band_idxs[start:start + bs]
+                k = len(chunk)
+                local = np.zeros((bs, 2), np.int64)
+                local[:k] = [(coords_all[i][0] - y0, coords_all[i][1])
+                             for i in chunk]
+                windows = self._extract(band, local)
+            with span("wsi.batch.infer"):
+                out = self._infer(windows)
             if isinstance(out, tuple):  # uncertainty: (mean, variance)
                 yield (out[0][:k], out[1][:k]), local[:k]
             else:
@@ -436,68 +464,70 @@ class BandedSlidingWindow:
     def run(self, source, prob_dtype=np.float16) -> Tuple[np.ndarray, ...]:
         """Returns (prob, mask) — plus a TTA-disagreement map when
         constructed with ``uncertainty=True``."""
-        h, w = source.canvas_hw
-        tile, band_h, dev = self.tile, self.band_h, self.device
-        n = len(source)
-        # band assignment by tile top edge (host-side, O(tiles))
-        coords_all = getattr(source, "coords", None)
-        if coords_all is None:
-            coords_all = [source.get(i)[1] for i in range(n)]
-        n_bands = -(-h // band_h)
-        per_band: list[list[int]] = [[] for _ in range(n_bands)]
-        for i, (y, x) in enumerate(coords_all):
-            per_band[min(y // band_h, n_bands - 1)].append(i)
+        with span("wsi.plan"):
+            h, w = source.canvas_hw
+            tile, band_h, dev = self.tile, self.band_h, self.device
+            n = len(source)
+            # band assignment by tile top edge (host-side, O(tiles))
+            coords_all = getattr(source, "coords", None)
+            if coords_all is None:
+                coords_all = [source.get(i)[1] for i in range(n)]
+            n_bands = -(-h // band_h)
+            per_band: list[list[int]] = [[] for _ in range(n_bands)]
+            for i, (y, x) in enumerate(coords_all):
+                per_band[min(y // band_h, n_bands - 1)].append(i)
 
-        use_band = (self.band_input if self.band_input is not None
-                    else hasattr(source, "read_region"))
-        if use_band and not hasattr(source, "read_region"):
-            raise ValueError(
-                "band_input=True requires a source with read_region(y, x, "
-                "h, w); pass band_input=False for window-upload mode")
+            use_band = (self.band_input if self.band_input is not None
+                        else hasattr(source, "read_region"))
+            if use_band and not hasattr(source, "read_region"):
+                raise ValueError(
+                    "band_input=True requires a source with read_region(y, "
+                    "x, h, w); pass band_input=False for window-upload mode")
 
-        band_rows = band_h + tile
-        nonempty = [b for b in range(n_bands) if per_band[b]]
-        fetcher = ThreadPoolExecutor(max_workers=1) if use_band else None
-        if use_band and dev.type == "cuda":
-            self._copy_stream = torch.cuda.Stream(dev)
-        futures: dict = {}
-        timings = []
-        stats = {"bands": len(nonempty) if use_band else 0,
-                 "band_upload_bytes": 0, "band_read_s": 0.0,
-                 "band_upload_s": 0.0}
+            band_rows = band_h + tile
+            nonempty = [b for b in range(n_bands) if per_band[b]]
+            fetcher = ThreadPoolExecutor(max_workers=1) if use_band else None
+            if use_band and dev.type == "cuda":
+                self._copy_stream = torch.cuda.Stream(dev)
+            futures: dict = {}
+            timings = []
+            stats = {"bands": len(nonempty) if use_band else 0,
+                     "band_upload_bytes": 0, "band_read_s": 0.0,
+                     "band_upload_s": 0.0}
 
-        def submit(b):
-            futures[b] = fetcher.submit(self._fetch_band, source, b * band_h,
-                                        band_rows, w)
+            def submit(b):
+                futures[b] = fetcher.submit(self._fetch_band, source,
+                                            b * band_h, band_rows, w)
 
-        if use_band and nonempty:
-            submit(nonempty[0])
+            if use_band and nonempty:
+                submit(nonempty[0])
 
-        def roll(a):
-            # the last `tile` rows become the next band's first rows
-            a[:tile].copy_(a[band_h:])
-            a[tile:].zero_()
+            def roll(a):
+                # the last `tile` rows become the next band's first rows
+                a[:tile].copy_(a[band_h:])
+                a[tile:].zero_()
 
-        torch_prob_dtype = torch.from_numpy(np.zeros(0, prob_dtype)).dtype
-        prob_out = np.zeros((h, w), dtype=prob_dtype)
-        mask_out = np.zeros((h, w), dtype=np.uint8)
+            torch_prob_dtype = torch.from_numpy(np.zeros(0, prob_dtype)).dtype
+            prob_out = np.zeros((h, w), dtype=prob_dtype)
+            mask_out = np.zeros((h, w), dtype=np.uint8)
 
-        def zeros():
-            return torch.zeros((band_rows, w), dtype=torch.float32,
-                               device=dev)
+            def zeros():
+                return torch.zeros((band_rows, w), dtype=torch.float32,
+                                   device=dev)
 
-        accum, weight = zeros(), zeros()
-        unc_out = var_accum = var_weight = None
-        if self.uncertainty:
-            unc_out = np.zeros((h, w), dtype=prob_dtype)
-            var_accum, var_weight = zeros(), zeros()
-        compute = torch.cuda.current_stream(dev) if dev.type == "cuda" \
-            else None
+            accum, weight = zeros(), zeros()
+            unc_out = var_accum = var_weight = None
+            if self.uncertainty:
+                unc_out = np.zeros((h, w), dtype=prob_dtype)
+                var_accum, var_weight = zeros(), zeros()
+            compute = torch.cuda.current_stream(dev) if dev.type == "cuda" \
+                else None
         try:
             for b in range(n_bands):
                 y0 = b * band_h
                 if use_band and per_band[b]:
-                    band, read_s, events, nbytes = futures.pop(b).result()
+                    with span("wsi.band.wait"):
+                        band, read_s, events, nbytes = futures.pop(b).result()
                     stats["band_read_s"] += read_s
                     stats["band_upload_bytes"] += nbytes
                     if events is not None:
@@ -512,40 +542,39 @@ class BandedSlidingWindow:
                     batches = self._band_prob_batches(
                         coords_all, per_band[b], y0, band)
                 elif per_band[b]:
-                    batches = (
-                        (self._infer(host_to_device(
-                            torch.from_numpy(images), dev)),
-                         coords - np.asarray([y0, 0], np.int64))
-                        for images, coords
-                        in self._band_batches(source, per_band[b])
-                    )
+                    batches = self._upload_prob_batches(
+                        source, per_band[b], y0)
                 else:
                     batches = ()
                 for out, local in batches:
-                    probs, vars_ = (out if self.uncertainty
-                                    else (out, None))
-                    stitch_tiles_into(accum, weight, probs, local,
-                                      blend=self.blend)
-                    if vars_ is not None:
-                        # its own weight canvas, as in the JAX runner
-                        stitch_tiles_into(var_accum, var_weight, vars_,
-                                          local, blend=self.blend)
-                rows = min(band_h, h - y0)
-                prob, mask = finalize_canvas(accum[:band_h], weight[:band_h])
-                maps = [prob[:rows].to(torch_prob_dtype), mask[:rows]]
-                if self.uncertainty:
-                    maps.append(_divided(var_accum[:band_h],
-                                         var_weight[:band_h])[:rows]
-                                .to(torch_prob_dtype))
-                host = device_to_host(maps)
-                prob_out[y0:y0 + rows] = host[0]
-                mask_out[y0:y0 + rows] = host[1]
-                if self.uncertainty:
-                    unc_out[y0:y0 + rows] = host[2]
-                if b + 1 < n_bands:
-                    for canvas in (accum, weight, var_accum, var_weight):
-                        if canvas is not None:
-                            roll(canvas)
+                    with span("wsi.batch.stitch"):
+                        probs, vars_ = (out if self.uncertainty
+                                        else (out, None))
+                        stitch_tiles_into(accum, weight, probs, local,
+                                          blend=self.blend)
+                        if vars_ is not None:
+                            # its own weight canvas, as in the JAX runner
+                            stitch_tiles_into(var_accum, var_weight, vars_,
+                                              local, blend=self.blend)
+                with span("wsi.band.fetch"):
+                    rows = min(band_h, h - y0)
+                    prob, mask = finalize_canvas(accum[:band_h],
+                                                 weight[:band_h])
+                    maps = [prob[:rows].to(torch_prob_dtype), mask[:rows]]
+                    if self.uncertainty:
+                        maps.append(_divided(var_accum[:band_h],
+                                             var_weight[:band_h])[:rows]
+                                    .to(torch_prob_dtype))
+                    host = device_to_host(maps)
+                with span("wsi.band.write"):
+                    prob_out[y0:y0 + rows] = host[0]
+                    mask_out[y0:y0 + rows] = host[1]
+                    if self.uncertainty:
+                        unc_out[y0:y0 + rows] = host[2]
+                    if b + 1 < n_bands:
+                        for canvas in (accum, weight, var_accum, var_weight):
+                            if canvas is not None:
+                                roll(canvas)
         finally:
             if fetcher is not None:
                 fetcher.shutdown(wait=True, cancel_futures=True)

@@ -6,7 +6,10 @@
   Chrome trace (``*.pt.trace.json``) into a directory, with the card's
   activity when asked for (the ``profile_epoch`` config extra);
 * :func:`device_op_summary`: the newest trace's device kernels (or, in a
-  trace with none, its CPU operators) summed by name.
+  trace with none, its CPU operators) summed by name;
+* :func:`span`: a named ``torch.profiler`` annotation around a piece of
+  host work, on the profiler's clock beside the card's operations, and a
+  shared no-op when no profiler runs.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import time
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 
 class StepTimer:
@@ -49,6 +53,21 @@ class StepTimer:
     def reset(self) -> None:
         self._times.clear()
         self._last = None
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``record_function`` annotation named ``name`` while a profiler
+    runs in this process, else the one shared ``nullcontext`` (no
+    allocation, no call into the profiler).  Give fixed names, so that a
+    trace sums a span's calls by name.  The profiler's flag is private:
+    where a torch release lacks it, every call opens the annotation (the
+    same trace, only slower)."""
+    if not getattr(torch.autograd.profiler, "_is_profiler_enabled", True):
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
 
 
 TRACE_SUFFIX = ".pt.trace.json"
