@@ -332,22 +332,37 @@ class BandedSlidingWindow:
     ``batch_size`` is padded with windows at (0, 0), whose probabilities are
     dropped before stitching.
 
+    **Write-behind**: a band's fetched rows are copied into the host maps
+    by a writer thread while the next band computes (the first touch of
+    the maps' pages is most of that copy's time).  At most one write is in
+    flight: before handing over a band's write the caller waits for the
+    previous one, so at most two bands' host copies are alive.  ``run``
+    returns once the last band's write is done; an exception on the writer
+    reaches the caller at the next wait, and both runner threads are shut
+    down on every exit.
+
     Binary models only: a multi-class model raises (use
     :class:`SlidingWindowInference`).  After ``run``, ``last_run`` holds
     the band count and the band uploads' bytes, host read seconds and
     device copy seconds.  For bands made on the card (a tensor source),
     ``band_upload_bytes`` is 0 and ``band_upload_s`` is the device time of
-    making them on the side stream, not a copy's.
+    making them on the side stream, not a copy's.  ``band_writes_behind``
+    counts the band writes that ran while a later band computed (every
+    band's but the last), and ``band_write_wait_s`` is the caller's time
+    spent waiting for the writer, the last band's write included.
 
     Under a running ``torch.profiler``, ``run`` opens fixed-name spans
     (``utils/profiling.py::span``), all on the calling thread:
     ``wsi.plan`` (band assignment, output maps, first band request) once;
     per band ``wsi.band.wait`` (for the prefetch thread),
     ``wsi.band.fetch`` (finalize, casts, the copy to the host) and
-    ``wsi.band.write`` (the host maps, the canvas roll);
+    ``wsi.band.write`` (the wait for the previous band's write, the
+    hand-off to the writer and the canvas roll; for the last band, the
+    wait for its own write);
     per batch ``wsi.batch.cut`` (the windows cut or read and uploaded),
     ``wsi.batch.infer`` (the step's launches) and ``wsi.batch.stitch``.
-    None is open across another, and none per window."""
+    None is open across another, and none per window.  The writer thread
+    opens none."""
 
     def __init__(self, model, tile: int = 512, batch_size: int = 32,
                  band_h: Optional[int] = None, tta: bool = False,
@@ -460,6 +475,13 @@ class BandedSlidingWindow:
             end.record()
         return band, read_s, (start, end), nbytes
 
+    @staticmethod
+    def _write_band(outs, y0: int, host) -> None:
+        """Copy a band's fetched rows into the host maps from row ``y0``;
+        runs on the writer thread."""
+        for out, rows in zip(outs, host, strict=True):
+            out[y0:y0 + len(rows)] = rows
+
     @torch.inference_mode()
     def run(self, source, prob_dtype=np.float16) -> Tuple[np.ndarray, ...]:
         """Returns (prob, mask) — plus a TTA-disagreement map when
@@ -487,13 +509,15 @@ class BandedSlidingWindow:
             band_rows = band_h + tile
             nonempty = [b for b in range(n_bands) if per_band[b]]
             fetcher = ThreadPoolExecutor(max_workers=1) if use_band else None
+            writer = ThreadPoolExecutor(max_workers=1)
             if use_band and dev.type == "cuda":
                 self._copy_stream = torch.cuda.Stream(dev)
             futures: dict = {}
             timings = []
             stats = {"bands": len(nonempty) if use_band else 0,
                      "band_upload_bytes": 0, "band_read_s": 0.0,
-                     "band_upload_s": 0.0}
+                     "band_upload_s": 0.0, "band_writes_behind": 0,
+                     "band_write_wait_s": 0.0}
 
             def submit(b):
                 futures[b] = fetcher.submit(self._fetch_band, source,
@@ -520,8 +544,16 @@ class BandedSlidingWindow:
             if self.uncertainty:
                 unc_out = np.zeros((h, w), dtype=prob_dtype)
                 var_accum, var_weight = zeros(), zeros()
+            outs = [m for m in (prob_out, mask_out, unc_out) if m is not None]
             compute = torch.cuda.current_stream(dev) if dev.type == "cuda" \
                 else None
+            written = None  # the band write in flight
+
+            def wait_written():
+                t0 = time.perf_counter()
+                written.result()
+                stats["band_write_wait_s"] += time.perf_counter() - t0
+
         try:
             for b in range(n_bands):
                 y0 = b * band_h
@@ -567,17 +599,23 @@ class BandedSlidingWindow:
                                     .to(torch_prob_dtype))
                     host = device_to_host(maps)
                 with span("wsi.band.write"):
-                    prob_out[y0:y0 + rows] = host[0]
-                    mask_out[y0:y0 + rows] = host[1]
-                    if self.uncertainty:
-                        unc_out[y0:y0 + rows] = host[2]
+                    if written is not None:
+                        # the previous band's write, which had this band's
+                        # compute to finish in
+                        wait_written()
+                        stats["band_writes_behind"] += 1
+                    written = writer.submit(self._write_band, outs, y0, host)
+                    del host
                     if b + 1 < n_bands:
                         for canvas in (accum, weight, var_accum, var_weight):
                             if canvas is not None:
                                 roll(canvas)
+                    else:
+                        wait_written()
         finally:
             if fetcher is not None:
                 fetcher.shutdown(wait=True, cancel_futures=True)
+            writer.shutdown(wait=True, cancel_futures=True)
         stats["band_upload_s"] = sum(s.elapsed_time(e)
                                      for s, e in timings) / 1000.0
         self.last_run = stats
