@@ -2,7 +2,8 @@
 the comparison against limits.
 
 A cell is found by name: ``BENCHMARK.json`` names its configuration and
-traffic; ``configs/<config>.json`` holds the sizes, ``traffic/<mix>.json``
+traffic; ``configs/<config>.json`` holds the sizes (and may name its plain
+reference module, ``reference/models.py::build``), ``traffic/<mix>.json``
 the parameters and the driver (``drivers/<driver>.py``), and
 ``limits/<workload>.json`` the limit of each number the check compares.
 """
@@ -20,6 +21,8 @@ HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
 # top-level module names a run may not hold once its window has closed
 FORBIDDEN = ("jax", "jaxlib", "flax", "pdac_pathological_image_segmentation_tpu")
+# keys of a configuration file that the program reads from ``Config.extras``
+PROGRAM_EXTRAS = ("loss",)
 
 
 @dataclasses.dataclass
@@ -95,8 +98,10 @@ def cell(bench: dict, workload: str, seed: int, seconds: float,
     if work is None:
         raise KeyError(f"no workload {workload!r} in BENCHMARK.json")
     conf = next(c for c in bench["configs"] if c["name"] == work["config"])
-    return Cell(name=workload,
-                config=read_json(here.parent / conf["file"]),
+    config = read_json(here.parent / conf["file"])
+    if "reference" in config:
+        config["reference"] = str(here.parent / config["reference"])
+    return Cell(name=workload, config=config,
                 traffic=read_json(here / "traffic" / f"{work['traffic']}.json"),
                 limits=read_json(here / "limits" / f"{workload}.json"),
                 seed=seed, seconds=seconds, trace=trace)
@@ -131,13 +136,13 @@ def program_model(cfg: dict, state_dict: dict, device):
 
 
 def program_config(cfg: dict):
+    """The program's ``Config`` of a configuration file's dict: every key
+    that names one of its fields, and those of :data:`PROGRAM_EXTRAS`."""
     from pdac_pathological_image_segmentation_tpu_torch import Config
 
-    return Config.from_dict({
-        "model": cfg["model"], "backbone": cfg["backbone"],
-        "img_size": cfg["img_size"], "compute_dtype": cfg["compute_dtype"],
-        "num_classes": cfg["num_classes"], "batch_size": cfg["batch_size"],
-        "lr": cfg["lr"], "loss": cfg["loss"]})
+    fields = {f.name for f in dataclasses.fields(Config)} - {"extras"}
+    return Config.from_dict({k: v for k, v in cfg.items()
+                             if k in fields or k in PROGRAM_EXTRAS})
 
 
 def reference_model(cfg: dict, state_dict: dict, device):

@@ -3,6 +3,16 @@ resnet18 (segmentation_models_pytorch's ``FPN(encoder_name="resnet18")``)
 and the reference repository's ResNet18-U-Net, with the parameter names of
 their published ``state_dict``s.
 
+A configuration file reaches its model through :func:`build`: by its
+``"reference"`` key, the path from the checkout's root of a module whose
+``MODEL`` is the class, or else by ``"model"`` in :data:`ARCHITECTURES`.
+Every model class takes the configuration's dict, and gives ``stored``,
+the module types whose outputs a step computed wholly in a lower
+precision stores (:func:`set_quantizer`), and ``draw_dropout(n,
+generator, device)``, what ``forward(x, dropout)`` takes in a train
+step, drawn from the step's generator, or None.  A new module imports
+``QConv``, the norms and :func:`normalize_u8` from here.
+
 Independent of the program under test: torch ops only, float32 unless a
 quantizer is set.  ``QConv`` is where a lower precision enters: a model's
 ``set_quantizer(q)`` makes every convolution compute on ``q(input,
@@ -13,6 +23,9 @@ reference); ``None`` is float32.
 """
 
 from __future__ import annotations
+
+import functools
+from pathlib import Path
 
 import torch
 import torch.nn as nn
@@ -130,6 +143,7 @@ class FPNDecoder(nn.Module):
         self.p2 = Lateral(enc[0], pyramid)
         self.seg_blocks = nn.ModuleList(
             SegBlock(pyramid, seg, groups, n) for n in (3, 2, 1, 0))
+        self.seg_channels = seg
         self.dropout = dropout
 
 
@@ -138,6 +152,9 @@ class FPN(nn.Module):
     segmentation block per level (3×3 conv, GroupNorm, ReLU, nearest 2×
     up to stride 4), their sum, Dropout2d, a 1×1 head and a corner-aligned
     bilinear ×4 to the tile."""
+
+    stored = (nn.BatchNorm2d, nn.GroupNorm, BasicBlock, Lateral, ConvGNReLU,
+              SegBlock)
 
     def __init__(self, cfg):
         super().__init__()
@@ -148,6 +165,16 @@ class FPN(nn.Module):
                                   cfg["gn_groups"], cfg["dropout"])
         self.segmentation_head = nn.Sequential(
             QConv(cfg["segmentation_channels"], cfg["num_classes"], 1))
+
+    def draw_dropout(self, n: int, g: torch.Generator, device):
+        """The Dropout2d mask of the decoder's output, (N, C) planes kept
+        where U[0, 1) ≥ p, drawn as (N, C, 1, 1) from ``g`` after the
+        augmentation's draws; None without dropout."""
+        d = self.decoder
+        if d.dropout <= 0.0:
+            return None
+        return (torch.rand((n, d.seg_channels, 1, 1), generator=g)
+                >= d.dropout)[:, :, 0, 0].to(device)
 
     def forward(self, x, dropout_keep=None):
         """``dropout_keep`` (N, C) bool: the train step's Dropout2d mask,
@@ -172,6 +199,8 @@ class ResUNet(nn.Module):
     of a 2×2/2 transposed conv, concatenation with the skip, 3×3 conv with
     bias and ReLU; a 1×1 head at stride 4 and a half-pixel bilinear ×4."""
 
+    stored = (nn.BatchNorm2d, BasicBlock)
+
     def __init__(self, cfg):
         super().__init__()
         widths = tuple(cfg["encoder_widths"])
@@ -185,6 +214,9 @@ class ResUNet(nn.Module):
             setattr(self, f"conv{i}", QConv(c + s, c, 3, 1, 1))
         self.conv4 = QConv(d[2], cfg["num_classes"], 1)
 
+    def draw_dropout(self, n: int, g: torch.Generator, device):
+        return None
+
     def forward(self, x, dropout_keep=None):
         _, x2, x3, x4, x5 = self.encoder(x)
         y = F.relu(self.conv1(torch.cat([self.upconv1(x5), x4], 1)))
@@ -195,41 +227,46 @@ class ResUNet(nn.Module):
                              align_corners=False)
 
 
-ARCHITECTURES = {"fpn": FPN, "unet": ResUNet}
+ARCHITECTURES = {"fpn": FPN, "unet": ResUNet}  # files with no "reference"
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_class(path: str) -> type:
+    from benchmark import harness
+
+    full = Path(path)
+    if not full.is_absolute():
+        full = harness.ROOT / full
+    return harness.load_module(full, "bench_reference_" + full.stem).MODEL
 
 
 def build(cfg) -> nn.Module:
     """The plain model of a configuration file's dict, float32, with each
     convolution named by its ``state_dict`` prefix (``QConv.site``)."""
-    model = ARCHITECTURES[cfg["model"]](cfg)
+    arch = (_reference_class(cfg["reference"]) if "reference" in cfg
+            else ARCHITECTURES[cfg["model"]])
+    model = arch(cfg)
     for name, m in model.named_modules():
         if isinstance(m, QConv):
             m.site = name
     return model
 
 
-STORED = (nn.BatchNorm2d, nn.GroupNorm, BasicBlock, Lateral, ConvGNReLU,
-          SegBlock)  # modules whose outputs a whole-step precision stores
-
-
 def set_quantizer(model: nn.Module, quantizer, outputs: bool = False) -> None:
     """Put ``quantizer`` in front of every convolution (None: float32);
-    with ``outputs`` also round what the norms, blocks and pyramid sums
-    store, ``quantizer(output, "out", name)``, as a step computed wholly
-    in that precision would."""
+    with ``outputs`` also round what the modules of the model's ``stored``
+    types store, ``quantizer(output, "out", name)``, as a step computed
+    wholly in that precision would."""
     for handle in getattr(model, "_stored_hooks", []):
         handle.remove()
     model._stored_hooks = []
+    stored = model.stored if outputs and quantizer is not None else ()
     for name, m in model.named_modules():
         if isinstance(m, QConv):
             m.quantizer = quantizer
-        if outputs and quantizer is not None and isinstance(m, STORED):
+        if isinstance(m, stored):
             model._stored_hooks.append(m.register_forward_hook(
                 lambda mod, inp, out, n=name: quantizer(out, "out", n)))
-
-
-def has_dropout(cfg) -> bool:
-    return cfg["model"] == "fpn" and cfg.get("dropout", 0.0) > 0.0
 
 
 NORMALIZE_MEAN = (0.485, 0.456, 0.406)

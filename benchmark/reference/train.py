@@ -9,8 +9,8 @@ normalize; with p = 0.3 one of {horizontal flip, rot90 by k, vertical
 flip}, the mask turned alike; the global soft Dice loss (smooth 1e-6) on
 the sigmoid; Adam.  The draws come from the step's CPU generator in the
 order the program takes them: the batch's jitter factors, op order, apply
-flags, geometry choice and rotation, then (FPN) the Dropout2d mask of the
-decoder's output, (N, C) planes kept where U[0, 1) ≥ p.
+flags, geometry choice and rotation, then what the model's
+``draw_dropout`` draws (FPN: the Dropout2d mask of the decoder's output).
 """
 
 from __future__ import annotations
@@ -19,11 +19,7 @@ import math
 
 import torch
 
-from benchmark.reference.models import (
-    NORMALIZE_MEAN,
-    NORMALIZE_STD,
-    has_dropout,
-)
+from benchmark.reference.models import NORMALIZE_MEAN, NORMALIZE_STD
 
 SMOOTH = 1e-6
 GRAY = (0.299, 0.587, 0.114)
@@ -157,14 +153,10 @@ def run_steps(model, cfg: dict, batches) -> dict:
         g = torch.Generator().manual_seed(gen_seed)
         d = draws(images.shape[0], g)
         x, m = augment(images, masks, d)
-        keep = None
-        if has_dropout(cfg):
-            c = cfg["segmentation_channels"]
-            keep = (torch.rand((x.shape[0], c, 1, 1), generator=g)
-                    >= cfg["dropout"])[:, :, 0, 0].to(x.device)
+        dropout = model.draw_dropout(x.shape[0], g, x.device)
         for p in params.values():
             p.grad = None
-        loss = dice_loss(model(x, keep), m)
+        loss = dice_loss(model(x, dropout), m)
         loss.backward()
         if grad1 is None:
             grad1 = {k: p.grad.detach().clone() for k, p in params.items()}

@@ -57,3 +57,11 @@ def few_threads():
 def configs() -> dict:
     return {c["name"]: json.loads((harness.ROOT / c["file"]).read_text())
             for c in BENCH["configs"]}
+
+
+def workloads(driver: str) -> list:
+    """The names of ``BENCHMARK.json``'s cells whose traffic runs
+    ``driver``, in its order."""
+    return [w["name"] for w in BENCH["workloads"]
+            if harness.read_json(harness.HERE / "traffic"
+                                 / f"{w['traffic']}.json")["driver"] == driver]

@@ -8,10 +8,10 @@ import torch
 from benchmark import harness
 from benchmark.reference import models
 from benchmark.reference import slide as ref_slide
-from benchmark.tests.conftest import configs, small_cell
+from benchmark.tests.conftest import BENCH, configs, small_cell, workloads
 
 
-@pytest.mark.parametrize("name", ["fpn_r18", "resunet_r18"])
+@pytest.mark.parametrize("name", [c["name"] for c in BENCH["configs"]])
 def test_forward_matches_the_program_in_float32(name):
     """The program's tile→mask step (normalize folded into the stem) and
     the plain model give the same probabilities on the same weights."""
@@ -56,8 +56,7 @@ def test_slide_cell_is_correct(workload):
     assert out.attempted == 1 and out.work["windows"] == 11 ** 2
 
 
-@pytest.mark.parametrize("workload", ["resunet_r18.train_b128",
-                                      "fpn_r18.train_b128"])
+@pytest.mark.parametrize("workload", workloads("train"))
 def test_train_steps_match_the_reference_in_float32(workload):
     """The program's steps in float32 (the non-fused augmentation on the
     same draws) follow the plain reference to rounding: augmentation
