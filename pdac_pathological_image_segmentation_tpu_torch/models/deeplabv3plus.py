@@ -21,6 +21,11 @@ A separable conv is a depthwise 3×3 (``groups`` = its input channels,
 dilated at the branch's rate) then a pointwise 1×1, neither with a bias.
 The dropout mask is drawn on the activation's device
 (``models/dropout.py::Dropout``).
+
+Under a running profiler the forward opens two spans
+(``utils/profiling.py::span``): ``deeplab.aspp`` around the ASPP and its
+separable 3×3, ``deeplab.decoder`` around the upsample, the skip
+projection, ``block2``, the head and the last resize.
 """
 
 from __future__ import annotations
@@ -43,6 +48,9 @@ from pdac_pathological_image_segmentation_tpu_torch.models.resnet import (
 )
 from pdac_pathological_image_segmentation_tpu_torch.ops.resize import (
     resize_bilinear,
+)
+from pdac_pathological_image_segmentation_tpu_torch.utils.profiling import (
+    span,
 )
 
 
@@ -105,11 +113,14 @@ class DeepLabV3PlusDecoder(nn.Module):
         self.block2 = nn.Sequential(_separable(channels + 48, channels),
                                     _bn(channels), nn.ReLU())
 
-    def forward(self, c2: torch.Tensor, c5: torch.Tensor,
+    def context(self, c5: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
-        y = self.aspp[1:](self.aspp[0](c5, generator))
+        """The ASPP and its separable 3×3, at stride 16."""
+        return self.aspp[1:](self.aspp[0](c5, generator))
+
+    def forward(self, c2: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
         # stride 16 → stride 4: smp's UpsamplingBilinear2d (corner-aligned)
-        y = resize_bilinear(y.float(), c2.shape[2], c2.shape[3],
+        y = resize_bilinear(context.float(), c2.shape[2], c2.shape[3],
                             align_corners=True).to(c2.dtype)
         return self.block2(torch.cat([y, self.block1(c2)], dim=1))
 
@@ -138,7 +149,10 @@ class DeepLabV3Plus(nn.Module):
         ``output_size``.  ``generator`` seeds the ASPP dropout in train
         mode."""
         _, c2, _, _, c5 = self.encoder(x.to(self.compute_dtype))
-        y = self.segmentation_head(self.decoder(c2, c5, generator))
-        return resize_bilinear(y.float(), self.output_size, self.output_size,
-                               align_corners=True)
+        with span("deeplab.aspp"):
+            context = self.decoder.context(c5, generator)
+        with span("deeplab.decoder"):
+            y = self.segmentation_head(self.decoder(c2, context))
+            return resize_bilinear(y.float(), self.output_size,
+                                   self.output_size, align_corners=True)
 
