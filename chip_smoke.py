@@ -58,6 +58,14 @@ Phases, each of which fails the run (exit code 1) on any error:
      bitwise against its plain version at every key the int8 main paths
      launched it under (shape, channels, dtype, layout), with its byte
      bound; a launched key without a row fails the run;
+   * ``stitch_tiles_into`` (``csrc/stitch.cu``) bitwise against its plain
+     loop (``stitch_tiles_into_reference``) at the slide cells' shape: 128
+     windows of 512² at stride 256, hann, into a 4,608 × 40,960 band
+     canvas that holds earlier sums, in float32 (what the slide paths'
+     steps return) and bfloat16, with ``device_ms``, the loop's time and
+     the byte bound; its launches are counted on the host-fed 16,384²
+     slide of phase 9 and the 40,960² slides of phase 10 (one a batch:
+     199 a 40,960² slide), each from its run alone;
 
 4. serving end to end, a main path: a seeded random smp-FPN/resnet18
    reference ``.pth`` → ``cli.export`` (tile 512, bf16) → the HTTP daemon
@@ -1804,6 +1812,106 @@ WSI_STRIDE = 256
 WSI_CPU_SIDE = 1024  # card vs CPU
 
 
+STITCH_SOURCE = "pdac_pathological_image_segmentation_tpu_torch/csrc/stitch.cu"
+# no TPU kernel: the JAX package's stitch, a lax.scan of slice updates left
+# to XLA
+STITCH_REPLACES = "pdac_pathological_image_segmentation_tpu/ops/stitch.py"
+WSI_BAND_H = 4096  # BandedSlidingWindow's default band, the slide cells'
+STITCH_FIRST = 100  # the rows' batch starts at a band's window 100
+
+
+def _stitch_launches(reset: bool = False) -> int:
+    """The stitch kernel's launch counter; with ``reset`` it is set to 0
+    first."""
+    from pdac_pathological_image_segmentation_tpu_torch.ops.stitch import (
+        stitch_tiles_into,
+    )
+
+    if reset:
+        stitch_tiles_into.launches = 0
+    return stitch_tiles_into.launches
+
+
+def _slide_batches(source, band_h: int, batch: int, side: int) -> int:
+    """The batches ``BandedSlidingWindow`` runs on ``source``: each band's
+    windows in batches of ``batch``."""
+    per_band = {}
+    for y, _ in source.coords:
+        b = min(y // band_h, -(-side // band_h) - 1)
+        per_band[b] = per_band.get(b, 0) + 1
+    return sum(-(-n // batch) for n in per_band.values())
+
+
+def phase_stitch_kernel() -> list:
+    """The batch stitch against its plain loop on the card, bitwise, at the
+    slide cells' shape: one batch of 128 windows of 512² at stride 256,
+    hann, from window 100 of a band (so that it crosses a window row), into
+    a 4,608 × 40,960 band canvas that holds earlier sums; float32
+    probabilities (what both slide paths' steps return) and bfloat16.
+    ``ms`` by CUDA events, ``device_ms`` from the profiler, ``plain_ms``
+    the loop's (its launches are host-bound: the host's time), and the
+    byte bound: the probabilities read once, and the accumulation and
+    weight canvases read and written once over the pixels the windows
+    cover.  It runs with phase 3, before the later phases' long profiles.
+    Launches are the slide paths' own, filled in after them."""
+    from pdac_pathological_image_segmentation_tpu_torch.ops.stitch import (
+        stitch_tiles_into,
+        stitch_tiles_into_reference,
+    )
+
+    h, w = WSI_BAND_H + TILE, WSI_TIMED_SIDE
+    grid = np.asarray([(y, x) for y in range(0, h - TILE + 1, WSI_STRIDE)
+                       for x in range(0, w - TILE + 1, WSI_STRIDE)], np.int64)
+    coords = grid[STITCH_FIRST:STITCH_FIRST + CONFIG_BATCH]
+    covered = np.zeros((h, w), bool)
+    for y, x in coords:
+        covered[y:y + TILE, x:x + TILE] = True
+    gen = torch.Generator(device="cuda").manual_seed(81)
+    accum = torch.rand((h, w), generator=gen, device="cuda") * 3
+    weight = torch.rand((h, w), generator=gen, device="cuda") * 2
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        probs = torch.rand((CONFIG_BATCH, TILE, TILE), generator=gen,
+                           device="cuda").to(dtype)
+        a, wt = stitch_tiles_into(accum.clone(), weight.clone(), probs,
+                                  coords)
+        ra, rw = stitch_tiles_into_reference(accum.clone(), weight.clone(),
+                                             probs, coords)
+        torch.cuda.synchronize()
+        if not (torch.equal(a, ra) and torch.equal(wt, rw)):
+            raise AssertionError(f"stitch {dtype}: kernel differs from the "
+                                 "plain loop")
+        del ra, rw
+
+        def kernel():
+            stitch_tiles_into(a, wt, probs, coords)
+
+        ms = cuda_ms(kernel)
+        dev = device_ms(kernel, 1, names=("stitch_kernel",))
+        plain = cuda_ms(
+            lambda: stitch_tiles_into_reference(a, wt, probs, coords),
+            warmup=1, iters=3, windows=3)
+        nbytes = (probs.numel() * probs.element_size()
+                  + int(covered.sum()) * 16)
+        rows.append({
+            "name": "stitch_tiles_into", "route": "cuda",
+            "source": STITCH_SOURCE, "replaces": STITCH_REPLACES,
+            "shape": [CONFIG_BATCH, TILE, TILE], "canvas": [h, w],
+            "dtype": str(dtype).removeprefix("torch."), "blend": "hann",
+            "launches": None,  # filled from the slide paths' runs
+            "max_abs_err": 0.0, "ms": ms, "device_ms": dev,
+            "plain_ms": plain, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "library_ms": None, "bytes": nbytes})
+        log(f"[stitch] {CONFIG_BATCH}×{TILE}² {rows[-1]['dtype']} into "
+            f"{h}×{w}: bitwise; {ms:.4f} ms (device {_ms_text(dev)}), bound "
+            f"{rows[-1]['bound_ms']:.4f} (bytes, {nbytes / 1e9:.3f} GB), "
+            f"plain loop {plain:.3f}")
+        del a, wt, probs
+    del accum, weight
+    torch.cuda.empty_cache()
+    return rows
+
+
 def _gn_forward_counts(reset: bool = False) -> tuple:
     """The GN forward's counters ``(launches, by shape, by variant)``; with
     ``reset`` they are set to 0 first."""
@@ -2102,23 +2210,25 @@ def phase_wsi_timed(tmp: Path, card: str) -> dict:
                                   stride=WSI_STRIDE, seed=41)
     runner = BandedSlidingWindow(model, tile=TILE, batch_size=batch,
                                  blend="hann", num_workers=cfg.num_worker)
-    per_band = {}
-    for y, _ in source.coords:
-        b = min(y // runner.band_h, -(-WSI_HOST_SIDE // runner.band_h) - 1)
-        per_band[b] = per_band.get(b, 0) + 1
-    batches = sum(-(-n // batch) for n in per_band.values())
+    batches = _slide_batches(source, runner.band_h, batch, WSI_HOST_SIDE)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     # -- the main path: launches counted from here ...
     _gn_forward_counts(reset=True)
+    _stitch_launches(reset=True)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         prob, mask = runner.run(source)
         wall = time.perf_counter() - t0
     counts = _gn_forward_counts()
+    stitches = _stitch_launches()
     # -- ... to here
     peak = torch.cuda.max_memory_allocated()
     _check_forwards("banded host-fed slide", counts, {batch: batches})
+    if stitches != batches or runner.last_run["stitch_launches"] != batches:
+        raise AssertionError(f"banded host-fed slide: stitch launches "
+                             f"{stitches} ({runner.last_run}), expected "
+                             f"{batches}")
     events = [ev for ev in prof.key_averages()
               if ev.device_type == DeviceType.CUDA]
     copies = sum(ev.self_device_time_total for ev in events
@@ -2138,7 +2248,8 @@ def phase_wsi_timed(tmp: Path, card: str) -> dict:
            "upload_gb": stats["band_upload_bytes"] / 1e9,
            "upload_s": stats["band_upload_s"], "read_s": stats["band_read_s"],
            "bands": stats["bands"], "gn_launches": counts[0],
-           "batches": batches, "tumor_fraction": float(mask[::7, ::7].mean())}
+           "stitch_launches": stitches, "batches": batches,
+           "tumor_fraction": float(mask[::7, ::7].mean())}
     log(f"[wsi-host] {WSI_HOST_SIDE}² synthetic slide, stride {WSI_STRIDE}, "
         f"hann, band input, FPN/resnet18 bf16, batch {batch}: {n} windows in "
         f"{wall:.2f} s wall = {n / wall:.1f} windows/s; device kernels "
@@ -2147,9 +2258,11 @@ def phase_wsi_timed(tmp: Path, card: str) -> dict:
         f"{stats['bands']} bands, upload {out['upload_gb']:.3f} GB in "
         f"{stats['band_upload_s']:.3f} s of copies (host reads "
         f"{stats['band_read_s']:.1f} s); GN launches {counts[0]} = 7 x "
-        f"{batches} batches, all cluster; on {card}")
+        f"{batches} batches, all cluster; stitch launches {stitches}; on "
+        f"{card}")
     del prob, mask
-    return {"summary": out, "by_variant": counts[2]}
+    return {"summary": out, "by_variant": counts[2],
+            "stitch_launches": stitches}
 
 
 def phase_wsi_card_vs_cpu(tmp: Path) -> None:
@@ -3392,11 +3505,14 @@ def phase_wsi_device(tmp: Path, card: str, int8: bool) -> dict:
     runner = BandedSlidingWindow(model, tile=TILE, batch_size=CONFIG_BATCH,
                                  blend="hann", num_workers=cfg.num_worker,
                                  infer_step=infer_step)
+    batches = _slide_batches(source, runner.band_h, CONFIG_BATCH,
+                             WSI_TIMED_SIDE)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     # -- the main path: launches counted from here ...
     _gn_forward_counts(reset=True)
     _int8_counts(reset=True)
+    _stitch_launches(reset=True)
     with (contextlib.nullcontext() if int8
           else profile(activities=[ProfilerActivity.CUDA])) as prof:
         t0 = time.perf_counter()
@@ -3405,13 +3521,16 @@ def phase_wsi_device(tmp: Path, card: str, int8: bool) -> dict:
     gn = _gn_forward_counts()
     launches, by_shape = _int8_counts()
     quantize_by_shape = _quantize_counts()
+    stitches = _stitch_launches()
     # -- ... to here
     peak = torch.cuda.max_memory_allocated()
     tag = "int8" if int8 else "bf16"
     stats = runner.last_run
-    if stats["band_upload_bytes"] or not gn[0] or bool(launches) != int8:
+    if stats["band_upload_bytes"] or not gn[0] or bool(launches) != int8 \
+            or stitches != batches or stats["stitch_launches"] != batches:
         raise AssertionError(f"device slide {tag}: {stats}, GN {gn[0]}, "
-                             f"int8 launches {launches}")
+                             f"int8 launches {launches}, stitch launches "
+                             f"{stitches} of {batches} batches")
     kernels = copies = None
     if prof is not None:
         events = [ev for ev in prof.key_averages()
@@ -3433,6 +3552,7 @@ def phase_wsi_device(tmp: Path, card: str, int8: bool) -> dict:
            "band_make_s": stats["band_upload_s"],
            "read_s": stats["band_read_s"], "bands": stats["bands"],
            "gn_launches": gn[0], "int8_launches": launches,
+           "stitch_launches": stitches,
            "tumor_fraction": float(mask[::7, ::7].mean())}
     log(f"[wsi-40k-device] {WSI_TIMED_SIDE}² DeviceSlideSource, stride "
         f"{WSI_STRIDE}, hann, FPN/resnet18 {tag}, batch {CONFIG_BATCH}: {n} "
@@ -3442,10 +3562,11 @@ def phase_wsi_device(tmp: Path, card: str, int8: bool) -> dict:
         + f"; peak {peak / 2 ** 30:.2f} GiB; {stats['bands']} "
         f"bands made on the card in {stats['band_upload_s']:.3f} s of "
         f"device time, 0 bytes uploaded; GN launches {gn[0]}, int8 "
-        f"{launches}; on {card}")
+        f"{launches}, stitch {stitches} = {batches} batches; on {card}")
     del prob, mask
     return {"summary": out, "by_variant": gn[2], "by_shape": by_shape,
-            "quantize_by_shape": quantize_by_shape}
+            "quantize_by_shape": quantize_by_shape,
+            "stitch_launches": stitches}
 
 
 # -- phase 11: every training option ------------------------------------------
@@ -5178,6 +5299,8 @@ def main() -> int:
     phase_done("3 augmentation rows")
     int8_rows = phase_int8_kernels()
     phase_done("3 int8 rows at batch 32")
+    stitch_rows = phase_stitch_kernel()
+    phase_done("3 stitch rows")
     enc_tags = [_tag(m, b) for m, b in ENCODER_PATHS]
     b7_tag = _tag("fpn", B7)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -5402,6 +5525,16 @@ def main() -> int:
     # readings of this run: they stay out of the kernels line
     kernels += [{k: v for k, v in r.items() if k != "mma_sync_ms"}
                 for r in int8_rows] + quantize_rows
+    # the slide paths' steps return float32 probabilities: their launches
+    # are the float32 row's; the bfloat16 row is off the paths
+    stitch_paths = {"wsi": wsi_timed["stitch_launches"],
+                    **{f"wsi_device_{t}": run["stitch_launches"]
+                       for t, run in wsi_device.items()}}
+    for row in stitch_rows:
+        row["launches_by_path"] = {p: n if row["dtype"] == "float32" else 0
+                                   for p, n in stitch_paths.items()}
+        row["launches"] = sum(row["launches_by_path"].values())
+    kernels += stitch_rows
     # each kernel of the paths ran on them, and on each new path
     gn_paths = ("serve", "eval", "eval_sharded", "wsi", f"serve_{b7_tag}",
                 f"eval_{b7_tag}", f"wsi_{b7_tag}", "serve_int8",

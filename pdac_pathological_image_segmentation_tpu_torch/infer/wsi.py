@@ -343,10 +343,12 @@ class BandedSlidingWindow:
 
     Binary models only: a multi-class model raises (use
     :class:`SlidingWindowInference`).  After ``run``, ``last_run`` holds
-    the band count and the band uploads' bytes, host read seconds and
-    device copy seconds.  For bands made on the card (a tensor source),
-    ``band_upload_bytes`` is 0 and ``band_upload_s`` is the device time of
-    making them on the side stream, not a copy's.  ``band_writes_behind``
+    the band count, the band uploads' bytes, host read seconds and
+    device copy seconds, and ``stitch_launches``, the stitch kernel's
+    launches (one a batch, two with ``uncertainty``; 0 on the CPU).  For
+    bands made on the card (a tensor source), ``band_upload_bytes`` is 0
+    and ``band_upload_s`` is the device time of making them on the side
+    stream, not a copy's.  ``band_writes_behind``
     counts the band writes that ran while a later band computed (every
     band's but the last), and ``band_write_wait_s`` is the caller's time
     spent waiting for the writer, the last band's write included.
@@ -518,6 +520,7 @@ class BandedSlidingWindow:
                      "band_upload_bytes": 0, "band_read_s": 0.0,
                      "band_upload_s": 0.0, "band_writes_behind": 0,
                      "band_write_wait_s": 0.0}
+            launches = stitch_tiles_into.launches
 
             def submit(b):
                 futures[b] = fetcher.submit(self._fetch_band, source,
@@ -618,6 +621,7 @@ class BandedSlidingWindow:
             writer.shutdown(wait=True, cancel_futures=True)
         stats["band_upload_s"] = sum(s.elapsed_time(e)
                                      for s, e in timings) / 1000.0
+        stats["stitch_launches"] = stitch_tiles_into.launches - launches
         self.last_run = stats
         oh, ow = getattr(source, "orig_hw", (h, w))
         if not self.uncertainty:
